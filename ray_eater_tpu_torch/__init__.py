@@ -1,0 +1,14 @@
+"""PyTorch/CUDA port of ``ray_eater_tpu`` for NVIDIA Hopper (H100).
+
+The JAX package stays the reference; this package reproduces its 3D
+Gaussian Splatting render path (``ops.gs.render_gaussians``) with plain
+PyTorch for the tensor glue and two kernels written by hand in CUDA C++
+(``csrc/``): K1, the EWA projection, and K2, the tile composite.
+
+Nothing here imports JAX or ``ray_eater_tpu``. Entry points run on
+``"cuda"`` unless the caller passes CPU tensors or ``device="cpu"``; on the
+CPU each kernel wrapper runs its plain PyTorch version, on a CUDA tensor it
+launches the kernel or raises.
+"""
+
+__version__ = "0.1.0"

@@ -1,0 +1,100 @@
+"""Where the time of one fog flythrough frame goes, on a CUDA device.
+
+    python3 -m ray_eater_tpu_torch.profile_gs [--frames 5]
+
+Renders the bench scene (1M splats, 1920x1080, fog knobs) through the
+port's ``render_gaussians``: a few warm LOD frames with temporal budgets,
+then ``--frames`` LOD frames and as many exact frames under
+``torch.profiler``. Prints, per mode, the CUDA-event time per frame, the
+summed device time per frame of the top kernels by name, the number of
+kernel launches per frame and the device busy share (summed kernel time
+over wall time). Needs a CUDA device; exits 2 without one.
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+
+
+def _profile(torch, frame, frames: int):
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    frame()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        a.record()
+        for _ in range(frames):
+            frame()
+        b.record()
+        b.synchronize()
+    wall_ms = a.elapsed_time(b)
+    rows = []
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue            # host-side ops; their kernels are rows too
+        dev_us = e.self_device_time_total
+        if dev_us > 0:
+            rows.append((dev_us / 1e3 / frames, e.count / frames, e.key))
+    rows.sort(reverse=True)
+    return wall_ms / frames, rows
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--frames", type=int, default=5)
+    ap.add_argument("--top", type=int, default=25)
+    args = ap.parse_args(argv)
+
+    import torch
+    if not torch.cuda.is_available():
+        print("profile_gs: no CUDA device", file=sys.stderr)
+        return 2
+    from .bench_knobs import flythrough_camera, render_kwargs, resolve_knobs
+    from .models.gaussians import random_cloud
+    from .ops import gs
+
+    W, H, n = 1920, 1080, 1_000_000
+    dev = torch.device("cuda")
+    knobs = resolve_knobs("fog", n, env={})
+    kw_meas = render_kwargs(knobs, exact=False, interpret=False)
+    kw_exact = render_kwargs(knobs, exact=True, interpret=False)
+    mpt, tile_w = knobs["max_splats_per_tile"], knobs["tile_w"]
+    ntx, nty = gs.num_tiles(W, H, tile_w)
+    cloud = random_cloud(n, seed=1, extent=1.0, scale_range=(0.004, 0.02),
+                         device=dev)
+    view, proj = flythrough_camera(0.5, W, H, device=dev)
+    budget = torch.stack([torch.full((ntx * nty,), mpt, dtype=torch.int32,
+                                     device=dev),
+                          torch.zeros(ntx * nty, dtype=torch.int32,
+                                      device=dev)], -1)
+    for _ in range(8):
+        _, st = gs.render_gaussians(cloud, view, proj, W, H,
+                                    lod_budget=budget, **kw_meas)
+        budget = gs.update_lod_budget(st["tile_exec"], mpt, ntx, nty,
+                                      st["tile_kept"], st["tile_count"],
+                                      dry_floor=knobs["dry_floor"])
+
+    modes = {
+        "fog LOD": lambda: gs.render_gaussians(cloud, view, proj, W, H,
+                                               lod_budget=budget, **kw_meas),
+        "exact": lambda: gs.render_gaussians(cloud, view, proj, W, H,
+                                             **kw_exact),
+    }
+    for name, frame in modes.items():
+        ms, rows = _profile(torch, frame, args.frames)
+        busy = sum(r[0] for r in rows)
+        launches = sum(r[1] for r in rows)
+        print(f"== {name}: {ms:.3f} ms/frame (CUDA events), device busy "
+              f"{busy:.3f} ms/frame ({100 * busy / ms:.1f}%), "
+              f"{launches:.0f} kernel launches/frame")
+        for dev_ms, count, key in rows[:args.top]:
+            print(f"  {dev_ms:9.4f} ms/frame  {count:6.1f}/frame  {key[:90]}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
