@@ -32,7 +32,7 @@ _FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _lib = None
 
 #: kernel launches per wrapper, counted where the wrapper launches
-launches = {"k1_project": 0, "k2_composite": 0}
+launches = {"k1_project": 0, "k2_composite": 0, "k3_composite_tail": 0}
 
 
 def reset_launches() -> None:
@@ -79,6 +79,8 @@ def lib() -> ctypes.CDLL:
         so.gs_project.restype = i
         so.gs_composite.argtypes = [p, i, p, p, p, p, i, i, i, p]
         so.gs_composite.restype = i
+        so.gs_composite_tail.argtypes = [p, i, p, p, p, p, p, i, i, i, i, p]
+        so.gs_composite_tail.restype = i
         _lib = so
     return _lib
 

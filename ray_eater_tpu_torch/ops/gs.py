@@ -5,26 +5,32 @@ One frame runs:
 
 1. **Project** — kernel K1 (``csrc/gs_project.cu``): EWA projection of every
    splat, one thread per splat (:func:`_project_fast`).
-2. **Bin** — PyTorch ops: each splat emits ``KX*ky`` candidate
-   ``tile << db | qdepth`` keys; one sort groups them into per-tile runs that
-   are front-to-back within each run. Exact mode keeps every pair (up to the
-   positional ``cap_pairs`` drop); the LOD mode grants each tile a
-   block-granular share of a global pool (:func:`_bin_splats`).
-3. **Pack** — one row gather of the (N, 12) record table into packed order.
+2. **Bin** — PyTorch ops: each splat emits candidate ``tile << db | qdepth``
+   keys through the level-1 fan (or the 2-slot fan plus a budgeted corner
+   channel), and splats too large for it through budgeted mid-lo, mid and
+   coarse side-channel fans; one sort groups all pairs into per-tile runs
+   that are front-to-back within each run. Exact mode keeps every pair (up
+   to the positional ``cap_pairs`` drop); the LOD mode grants each tile a
+   block-granular share of a global pool, and optionally a second pool for
+   the decimated tail (:func:`_bin_splats`).
+3. **Pack** — one row gather of the (N, 12) record table into packed order
+   (and one for the tail rows).
 4. **Composite** — kernel K2 (``csrc/gs_composite.cu``): one CTA per tile
    walks the tile's packed rows front to back, with tile-level saturation
    checked at 128-row chunk ends (:func:`_composite_call`).
-5. **Finalize** — mask unvisited tiles, untile, blend the background.
+5. **Tail** — kernel K3 (same source): the tail rows composited on a
+   decim×decim-decimated grid, entered at the head's per-quad mean
+   transmittance (:func:`_composite_tail_call`).
+6. **Finalize** — mask unvisited tiles, untile, add the bilinearly
+   upsampled tail, blend the background.
 
 The float32 arithmetic of every step that feeds an integer (radii, tile
 spans, depth keys, pool grants) keeps the JAX package's operands and order,
 so the two packages bin the same pairs. Each kernel has a plain PyTorch
 version here; its wrapper runs that version only for CPU tensors.
 
-Ported here: the level-1 fan, exact and LOD modes, temporal budgets.
 Not ported yet (``render_gaussians`` raises ``NotImplementedError``): the
-big/mid/mid-lo/corner side channels, the LOD tail proxy, the decimated
-tail composite and view-dependent SH colours.
+``lod_tail`` slab proxy and view-dependent SH colours.
 """
 
 from __future__ import annotations
@@ -34,6 +40,7 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from ..utils import pad_to as _pad_to
 from . import _cuda
@@ -43,6 +50,13 @@ TILE_W = 128
 CHUNK = 128      # rows of a composite chunk; saturation is checked per chunk
 KX = 2           # max horizontal tile span per splat
 KY = 2           # default max vertical tile span per splat
+KY2 = 8          # coarse (level-2) fan: vertical span, 111 px radius ceiling
+KX2 = 3          # its horizontal span at 128-wide tiles (see _kx2)
+KY_M = 4         # mid fan vertical span: 47 px radius ceiling
+KY_ML = 3        # mid-lo fan vertical span: 31 px radius ceiling
+#: decimation factor of the decimated-tail composite when the call does not
+#: give ``lod_tail_d``
+_TAIL_D = 2
 #: per-tile LOD desire ceiling, in multiples of max_splats_per_tile
 LOD_DESIRE_CAP = 32
 #: dry-tile floor-channel jump ceiling, in multiples of max_splats_per_tile
@@ -59,9 +73,43 @@ _F32 = torch.float32
 _I32 = torch.int32
 
 
+def _fan_limits(kx: int, ky: int, tile_w: int) -> tuple[int, int]:
+    """(rx_max, ry_max): the largest per-axis extents whose [m-r, m+r] span
+    fits in a kx×ky tile fan."""
+    return (kx - 1) * tile_w // 2 - 1, (ky - 1) * TILE_H // 2 - 1
+
+
 def level1_max_radius(ky: int = KY, tile_w: int = TILE_W) -> int:
     """Largest radius whose [m-r, m+r] span fits in KX×ky tiles."""
-    return min((ky - 1) * TILE_H // 2 - 1, (KX - 1) * tile_w // 2 - 1)
+    return min(_fan_limits(KX, ky, tile_w))
+
+
+def _fan_kx(ky_fan: int, tile_w: int) -> int:
+    """Horizontal slot count of a side-channel fan ky_fan tiles tall, chosen
+    so that its radius ceiling stays vertical-bound whatever ``tile_w``."""
+    rv = _fan_limits(1, ky_fan, tile_w)[1]
+    return -(-2 * (rv + 1) // tile_w) + 1
+
+
+def _kx2(tile_w: int) -> int:
+    """Slots across the coarse (level-2) fan: 3 at 128-wide tiles, 5 at 64,
+    8 at 32."""
+    return _fan_kx(KY2, tile_w)
+
+
+def level2_max_radius(tile_w: int = TILE_W) -> int:
+    """Radius ceiling of the coarse _kx2×KY2 fan (two-level binning)."""
+    return min(_fan_limits(_kx2(tile_w), KY2, tile_w))
+
+
+def _kxm(tile_w: int) -> int:
+    """Slots across the mid fan."""
+    return _fan_kx(KY_M, tile_w)
+
+
+def _kxml(tile_w: int) -> int:
+    """Slots across the mid-lo fan."""
+    return _fan_kx(KY_ML, tile_w)
 
 
 def num_tiles(width: int, height: int,
@@ -300,6 +348,15 @@ def _quantize_depth(depth, valid, db: int):
     return torch.where(valid, qd, 0)
 
 
+def _tile_span(mx, my, rx, ry, ntx: int, nty: int, tile_w: int):
+    """(tx0, tx1, ty0, ty1) int32: the tiles under the per-axis bbox."""
+    tx0 = torch.floor((mx - rx) / tile_w).to(_I32).clamp(0, ntx - 1)
+    tx1 = torch.floor((mx + rx) / tile_w).to(_I32).clamp(0, ntx - 1)
+    ty0 = torch.floor((my - ry) / TILE_H).to(_I32).clamp(0, nty - 1)
+    ty1 = torch.floor((my + ry) / TILE_H).to(_I32).clamp(0, nty - 1)
+    return tx0, tx1, ty0, ty1
+
+
 def _emit_fan(mx, my, rx, ry, r, valid, qd, kx_fan: int, ky_fan: int,
               ntx: int, nty: int, db: int, tile_w: int = TILE_W):
     """Candidate ``tile << db | qdepth`` keys of a kx_fan×ky_fan tile fan
@@ -307,10 +364,7 @@ def _emit_fan(mx, my, rx, ry, r, valid, qd, kx_fan: int, ky_fan: int,
     circle misses. Returns a list of (N,) int32 key streams; culled
     candidates hold the sentinel key ``ntiles << db``."""
     sentinel = (ntx * nty) << db
-    tx0 = torch.floor((mx - rx) / tile_w).to(_I32).clamp(0, ntx - 1)
-    tx1 = torch.floor((mx + rx) / tile_w).to(_I32).clamp(0, ntx - 1)
-    ty0 = torch.floor((my - ry) / TILE_H).to(_I32).clamp(0, nty - 1)
-    ty1 = torch.floor((my + ry) / TILE_H).to(_I32).clamp(0, nty - 1)
+    tx0, tx1, ty0, ty1 = _tile_span(mx, my, rx, ry, ntx, nty, tile_w)
     r2 = r * r
     keys = []
     for dy in range(ky_fan):
@@ -328,6 +382,75 @@ def _emit_fan(mx, my, rx, ry, r, valid, qd, kx_fan: int, ky_fan: int,
             keys.append(torch.where(ok, ((ty * ntx + tx) << db) | qd,
                                     sentinel).to(_I32))
     return keys
+
+
+def _emit_pair(mx, my, rx, ry, valid, qd, ntx: int, nty: int, db: int,
+               tile_w: int):
+    """Two-slot fan for splats whose bbox crosses at most one tile grid
+    line: slot 0 is the home tile (tx0, ty0), slot 1 the one crossed
+    neighbour. No circle cull: an ellipse whose bbox crosses one line
+    within its row or column band overlaps the neighbour on that axis.
+    Splats crossing both a vertical and a horizontal line go to the corner
+    channel (``corner_cap``)."""
+    sentinel = (ntx * nty) << db
+    tx0, tx1, ty0, ty1 = _tile_span(mx, my, rx, ry, ntx, nty, tile_w)
+    cx = (tx1 > tx0).to(_I32)
+    cy = (ty1 > ty0).to(_I32)
+    home = ty0 * ntx + tx0
+    k0 = torch.where(valid, (home << db) | qd, sentinel).to(_I32)
+    other = (ty0 + cy) * ntx + (tx0 + cx)
+    ok1 = valid & ((cx + cy) == 1)
+    k1 = torch.where(ok1, (other << db) | qd, sentinel).to(_I32)
+    return [k0, k1]
+
+
+def _compact_channel(ch_mask, ch_cap: int):
+    """Indices of the first ``ch_cap`` set entries of ``ch_mask`` (N,),
+    ascending, from one sort of ``where(mask, iota, N)``. Returns (n_set
+    () int, idx (ch_cap,) in [0, N-1], valid (ch_cap,) bool)."""
+    n = ch_mask.shape[0]
+    dev = ch_mask.device
+    iota = torch.arange(n, dtype=_I32, device=dev)
+    skey = torch.sort(torch.where(ch_mask, iota, n)).values[:min(ch_cap, n)]
+    if ch_cap > n:        # budget exceeds the splat count: pad sentinels
+        skey = torch.cat([skey, torch.full((ch_cap - n,), n, dtype=_I32,
+                                           device=dev)])
+    return (ch_mask.sum().to(_I32), torch.clamp(skey, max=n - 1),
+            skey < n)
+
+
+def _compact_channels(masks, caps):
+    """:func:`_compact_channel` for several disjoint masks through one sort:
+    the key carries the channel id above the splat index, so channel c's
+    indices land contiguously at offset Σ_{j<c} n_j of the sorted keys.
+    The sorted keys are padded with ``max(caps)`` sentinels so no channel's
+    window runs off the end; a slot is valid only where its channel id
+    matches, so reads past a channel's run (into the next channel or the
+    padding) are rejected. Returns a list of (n_set, idx, valid)."""
+    n = masks[0].shape[0]
+    nch = len(masks)
+    if nch == 1:
+        return [_compact_channel(masks[0], caps[0])]
+    dev = masks[0].device
+    shift = max(n.bit_length(), 1)
+    assert shift + (nch + 1).bit_length() < 31
+    iota = torch.arange(n, dtype=_I32, device=dev)
+    key = torch.full((n,), nch << shift, dtype=_I32, device=dev)
+    for c, m in enumerate(masks):
+        key = torch.where(m, (c << shift) | iota, key)
+    skey = torch.cat([torch.sort(key).values,
+                      torch.full((max(caps),), nch << shift, dtype=_I32,
+                                 device=dev)])
+    out = []
+    off = torch.zeros((), dtype=torch.int64, device=dev)
+    for c, (m, cap) in enumerate(zip(masks, caps)):
+        head = skey[off + torch.arange(cap, device=dev)]
+        vld = (head >> shift) == c
+        idx = torch.where(vld, head & ((1 << shift) - 1), 0)
+        nset = m.sum()
+        out.append((nset.to(_I32), torch.clamp(idx, max=n - 1), vld))
+        off = off + nset
+    return out
 
 
 def _pool3(a, nty: int, ntx: int):
@@ -403,18 +526,38 @@ class Binned(NamedTuple):
     row_begin: torch.Tensor   # (ntiles,) i32 first packed row of each tile
     row_end: torch.Tensor     # (ntiles,) i32 one past its last kept row
     visited: torch.Tensor     # (ntiles,) bool: kept > 0
-    overflow: torch.Tensor    # () dropped pairs
+    overflow: torch.Tensor    # () dropped pairs (behind the tail, if any)
     kept: torch.Tensor        # (ntiles,) i32 pairs kept
     count: torch.Tensor       # (ntiles,) i32 pairs emitted
+    overflow_big: torch.Tensor    # () splats the side channels dropped
+    # decimated tail (None without ``tail_decim``): its own aligned pack
+    pack_idx_tl: torch.Tensor | None = None
+    row_begin_tl: torch.Tensor | None = None
+    row_end_tl: torch.Tensor | None = None
+    kept_tl: torch.Tensor | None = None
 
 
 def _bin_splats(mx, my, rad, valid, depth, ntx: int, nty: int,
                 cap_pairs: int, ky: int = KY,
                 max_per_tile: int | None = None, budget=None,
-                tile_w: int = TILE_W, nseg: int = 1, ext=None) -> Binned:
+                tile_w: int = TILE_W, nseg: int = 1, ext=None,
+                big_cap: int | None = None, mid_cap: int | None = None,
+                mid_lo_cap: int | None = None,
+                corner_cap: int | None = None,
+                tail_decim: int | None = None) -> Binned:
     """Per-tile front-to-back pair lists from ONE sort of the combined
     ``tile << db | qdepth`` keys.
 
+    * Emission: splats whose per-axis extents fit the KX×ky span take the
+      level-1 fan. With ``corner_cap`` (ky = 2) that fan is 2-slot
+      (:func:`_emit_pair`) and splats crossing both a vertical and a
+      horizontal grid line go to a budgeted 2×2 corner channel. With
+      ``big_cap`` the larger splats go, by per-axis extent, to the budgeted
+      mid-lo (``mid_lo_cap``), mid (``mid_cap``) and coarse (``big_cap``)
+      fans. Each channel keeps its first ``cap`` splats by index
+      (:func:`_compact_channels`); the rest are dropped whole and counted
+      in ``overflow_big``. Every key stream carries its splat ids through
+      the sort.
     * exact (``max_per_tile=None``): the packed array is the sorted pair
       order itself; pairs past ``cap_pairs`` are dropped positionally.
       ``cap_pairs`` is rounded to ``CHUNK * nseg`` rows as the JAX layout
@@ -425,6 +568,10 @@ def _bin_splats(mx, my, rad, valid, depth, ntx: int, nty: int,
       ``ceil(ntiles*m/CHUNK)`` blocks is granted floor-first then
       proportionally, and snapped to whole blocks. A (ntiles, 2)
       ``budget`` carries the dry-need channel of :func:`update_lod_budget`.
+    * tail (``tail_decim=d``, LOD only): a second pool averaging ``d``
+      pairs per tile grants each tile the next pairs of its sorted list
+      beyond the head grant, granted and snapped the same way, in its own
+      aligned pack. ``overflow`` then counts the pairs behind the tail.
     """
     n = mx.shape[0]
     dev = mx.device
@@ -438,17 +585,68 @@ def _bin_splats(mx, my, rad, valid, depth, ntx: int, nty: int,
     tile_bits = max(ntiles.bit_length(), 1)   # ids 0..ntiles-1 + sentinel
     db = min(31 - tile_bits, 22)
     qd = _quantize_depth(depth, valid, db)
-    keys = _emit_fan(mx, my, rx, ry, r, valid, qd, KX, ky, ntx, nty, db,
-                     tile_w)
+
+    # level-1 fan: splats whose per-axis extents fit the KX×ky span (all
+    # valid splats without side channels: projection clamped their radii)
+    def fits(kx_fan, ky_fan):
+        lx, ly = _fan_limits(kx_fan, ky_fan, tile_w)
+        return (rx <= lx) & (ry <= ly)
+
+    small = valid if big_cap is None else valid & fits(KX, ky)
+    comp = []     # budgeted side channels: (mask, cap, kx, ky)
+    if corner_cap is not None and ky == 2 and KX == 2:
+        tx0, tx1, ty0, ty1 = _tile_span(mx, my, rx, ry, ntx, nty, tile_w)
+        corner = small & (tx1 > tx0) & (ty1 > ty0)
+        keys = _emit_pair(mx, my, rx, ry, small & ~corner, qd, ntx, nty,
+                          db, tile_w)
+        comp.append((corner, corner_cap, KX, ky))
+    else:
+        keys = _emit_fan(mx, my, rx, ry, r, small, qd, KX, ky, ntx, nty,
+                         db, tile_w)
+    nl1 = len(keys)
+    if big_cap is not None:
+        over1 = valid & ~small
+        if mid_cap is not None:
+            kxm = _kxm(tile_w)
+            fits_mid = fits(kxm, KY_M)
+            if mid_lo_cap is not None:
+                kxl = _kxml(tile_w)
+                fits_lo = fits(kxl, KY_ML)
+                comp.append((over1 & fits_lo, mid_lo_cap, kxl, KY_ML))
+                comp.append((over1 & ~fits_lo & fits_mid, mid_cap, kxm,
+                             KY_M))
+            else:
+                comp.append((over1 & fits_mid, mid_cap, kxm, KY_M))
+            comp.append((over1 & ~fits_mid, big_cap, _kx2(tile_w), KY2))
+        else:
+            comp.append((over1, big_cap, _kx2(tile_w), KY2))
+    overflow_big = torch.zeros((), dtype=_I32, device=dev)
+    # the splat id of every key, i32: the level-1 slots hold every splat in
+    # index order, each channel's slots its compacted indices
+    ids = [torch.arange(n, dtype=_I32, device=dev).repeat(nl1)]
+    if comp:
+        side = torch.stack([mx, my, rx, ry, r, qd.to(_F32)], -1)
+        results = _compact_channels([c[0] for c in comp],
+                                    [c[1] for c in comp])
+        for (_, ch_cap, ch_kx, ch_ky), (nset, bidx, bvalid) \
+                in zip(comp, results):
+            overflow_big = overflow_big + torch.clamp(nset - ch_cap, min=0)
+            bs = side[bidx]                               # (ch_cap, 6)
+            bkeys = _emit_fan(bs[:, 0], bs[:, 1], bs[:, 2], bs[:, 3],
+                              bs[:, 4], bvalid, bs[:, 5].to(_I32), ch_kx,
+                              ch_ky, ntx, nty, db, tile_w)
+            keys += bkeys
+            ids.append(bidx.repeat(len(bkeys)))
     key_flat = torch.cat(keys)
     m = key_flat.shape[0]
     sorted_key, perm = torch.sort(key_flat, stable=True)
-    sorted_splat = perm % n          # key streams are concatenated per slot
+    sorted_splat = (torch.cat(ids) if len(ids) > 1 else ids[0])[perm]
 
     tvec = torch.arange(ntiles + 1, dtype=_I32, device=dev)
     start = torch.searchsorted(sorted_key, tvec << db, out_int32=True)
     startc = start[:-1]
     count = start[1:] - startc
+    tail = {}
     if max_per_tile is not None:
         qmask = (1 << db) - 1
         dry_need = None
@@ -478,6 +676,24 @@ def _bin_splats(mx, my, rad, valid, depth, ntx: int, nty: int,
         pack_idx, row_begin = _aligned_pack_idx(startc, kept, cap_steps,
                                                 sorted_splat)
         row_begin = row_begin.to(_I32)
+        if tail_decim is not None:
+            # the tail extends each tile's sorted prefix past its head
+            # grant: uniform floor + proportional surplus by remaining
+            # depth, from a second pool, block-snapped
+            want_tl = torch.clamp(count - kept, max=LOD_DESIRE_CAP
+                                  * tail_decim)
+            cap_steps_tl = -(-ntiles * tail_decim // CHUNK)
+            kept_tl = _pool_grant(torch.clamp(want_tl, max=tail_decim),
+                                  want_tl, cap_steps_tl * CHUNK)
+            kept_tl = _block_snap(kept_tl, want_tl, cap_steps_tl,
+                                  ntiles).to(_I32)
+            overflow = (count - kept - kept_tl).sum().to(_I32)
+            pack_tl, begin_tl = _aligned_pack_idx(
+                startc + kept, kept_tl, cap_steps_tl, sorted_splat)
+            begin_tl = begin_tl.to(_I32).contiguous()
+            tail = dict(pack_idx_tl=pack_tl, row_begin_tl=begin_tl,
+                        row_end_tl=(begin_tl + kept_tl).contiguous(),
+                        kept_tl=kept_tl)
     else:
         blk = CHUNK * nseg
         mpad = _pad_to(m, blk)
@@ -490,7 +706,7 @@ def _bin_splats(mx, my, rad, valid, depth, ntx: int, nty: int,
     return Binned(pack_idx=pack_idx, row_begin=row_begin.contiguous(),
                   row_end=(row_begin + kept).contiguous(),
                   visited=kept > 0, overflow=overflow, kept=kept,
-                  count=count)
+                  count=count, overflow_big=overflow_big, **tail)
 
 
 def _pack_records(records: torch.Tensor, pack_idx: torch.Tensor):
@@ -499,39 +715,46 @@ def _pack_records(records: torch.Tensor, pack_idx: torch.Tensor):
 
 
 # ---------------------------------------------------------------------------
-# K2: composite
+# K2 (head) and K3 (decimated tail): composite
 # ---------------------------------------------------------------------------
 
-def _composite_plain(records, row_begin, row_end, ntx: int, nty: int,
-                     tile_w: int = TILE_W):
-    """Plain PyTorch version of K2. Returns (planes (4, ntiles, 32*tile_w)
-    f32 = r, g, b, T; exec (ntiles,) i32).
+def _composite_grid_plain(records, row_begin, row_end, t_entry, ntx: int,
+                          nty: int, tile_w: int, decim: int):
+    """Plain PyTorch composite of every tile's packed rows over a sample
+    grid decimated by ``decim``, the body of K2's (``decim`` 1, ``t_entry``
+    None: T starts at 1) and K3's plain versions. Returns (planes (4,
+    ntiles, pixd) f32 = r, g, b, absolute T; exec (ntiles,) i32), pixd =
+    (32/decim)·(tile_w/decim); ``t_entry`` is (ntiles, pixd).
 
-    Tile t composites packed rows [row_begin[t], row_end[t]) front to back,
-    in chunks cut at absolute multiples of CHUNK rows; after each chunk the
-    tile stops if every one of its pixels has T < _T_EPS, and ``exec``
-    counts the rows of every chunk that ran. Chunks of all running tiles go
-    in parallel; inside a chunk the transmittance prefix is a ``cumprod``
-    (the kernel's running product, reassociated)."""
+    Sample i of tile t sits at the centre of its decim×decim quad. Tile t
+    composites packed rows [row_begin[t], row_end[t]) front to back, in
+    chunks cut at absolute multiples of CHUNK rows. A tile whose entry T is
+    below _T_EPS everywhere runs nothing; after each chunk the tile stops
+    if every sample has T < _T_EPS, and ``exec`` counts the rows of every
+    chunk that ran. Chunks of all running tiles go in parallel; inside a
+    chunk the transmittance prefix is a ``cumprod`` (the kernel's running
+    product, reassociated)."""
     dev = records.device
     ntiles = ntx * nty
-    pix = TILE_H * tile_w
+    twd = tile_w // decim
+    pix = (TILE_H // decim) * twd
     nrows = records.shape[0]
     tid = torch.arange(ntiles, device=dev)
     i = torch.arange(pix, device=dev)
-    shift = tile_w.bit_length() - 1
-    px = ((i & (tile_w - 1))[None] + ((tid % ntx) * tile_w)[:, None]) \
-        .to(_F32) + 0.5
-    py = ((i >> shift)[None] + ((tid // ntx) * TILE_H)[:, None]) \
-        .to(_F32) + 0.5
+    shift = twd.bit_length() - 1
+    px = ((i & (twd - 1))[None] * decim + ((tid % ntx) * tile_w)[:, None]) \
+        .to(_F32) + 0.5 * decim
+    py = ((i >> shift)[None] * decim + ((tid // ntx) * TILE_H)[:, None]) \
+        .to(_F32) + 0.5 * decim
     rgb = torch.zeros((3, ntiles, pix), dtype=_F32, device=dev)
-    tt = torch.ones((ntiles, pix), dtype=_F32, device=dev)
+    tt = (torch.ones((ntiles, pix), dtype=_F32, device=dev)
+          if t_entry is None else t_entry.to(_F32).clone())
     exec_ = torch.zeros(ntiles, dtype=_I32, device=dev)
     begin = row_begin.long()
     end = torch.clamp(row_end.long(), max=nrows)
     first = (begin // CHUNK) * CHUNK
     nch = torch.where(end > begin, (end - first + CHUNK - 1) // CHUNK, 0)
-    running = nch > 0
+    running = (nch > 0) & (tt.amax(1) >= _T_EPS)
     group = max(1, (1 << 25) // (CHUNK * pix))   # bounds the temporaries
     rows = torch.arange(CHUNK, device=dev)
     nmax = int(nch.max()) if ntiles else 0
@@ -567,6 +790,33 @@ def _composite_plain(records, row_begin, row_end, ntx: int, nty: int,
     return torch.stack([rgb[0], rgb[1], rgb[2], tt]), exec_
 
 
+def _composite_plain(records, row_begin, row_end, ntx: int, nty: int,
+                     tile_w: int = TILE_W):
+    """Plain PyTorch version of K2: (planes (4, ntiles, 32*tile_w) f32 =
+    r, g, b, T; exec (ntiles,) i32), every tile entered at T = 1."""
+    return _composite_grid_plain(records, row_begin, row_end, None, ntx, nty,
+                                 tile_w, 1)
+
+
+def _composite_tail_plain(records, row_begin, row_end, t_entry, ntx: int,
+                          nty: int, tile_w: int = TILE_W, decim: int = 2):
+    """Plain PyTorch version of K3: (planes (4, ntiles, pixd) f32 = r, g,
+    b, absolute T; exec (ntiles,) i32), each tile entered at its
+    ``t_entry`` row (the head's decimated T)."""
+    return _composite_grid_plain(records, row_begin, row_end, t_entry, ntx,
+                                 nty, tile_w, decim)
+
+
+def _composite_args(name, records, row_begin, row_end, ntiles, tile_w, dev):
+    if dev.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {dev}")
+    if tile_w not in (32, 64, 128):
+        raise ValueError(f"{name}: tile_w {tile_w} not in 32/64/128")
+    _check_arg(records, "records", _F32, (records.shape[0], _ROWS), dev)
+    _check_arg(row_begin, "row_begin", _I32, (ntiles,), dev)
+    _check_arg(row_end, "row_end", _I32, (ntiles,), dev)
+
+
 def _composite_call(records, row_begin, row_end, ntx: int, nty: int,
                     tile_w: int = TILE_W):
     """K2 wrapper: (planes (4, ntiles, 32*tile_w) f32, exec (ntiles,) i32),
@@ -576,14 +826,9 @@ def _composite_call(records, row_begin, row_end, ntx: int, nty: int,
     if dev.type == "cpu":
         return _composite_plain(records, row_begin, row_end, ntx, nty,
                                 tile_w)
-    if dev.type != "cuda":
-        raise ValueError(f"K2 composite: unsupported device {dev}")
-    if tile_w not in (32, 64, 128):
-        raise ValueError(f"K2 composite: tile_w {tile_w} not in 32/64/128")
     ntiles = ntx * nty
-    _check_arg(records, "records", _F32, (records.shape[0], _ROWS), dev)
-    _check_arg(row_begin, "row_begin", _I32, (ntiles,), dev)
-    _check_arg(row_end, "row_end", _I32, (ntiles,), dev)
+    _composite_args("K2 composite", records, row_begin, row_end, ntiles,
+                    tile_w, dev)
     planes = torch.empty((4, ntiles, TILE_H * tile_w), dtype=_F32,
                          device=dev)
     exec_ = torch.empty(ntiles, dtype=_I32, device=dev)
@@ -597,27 +842,92 @@ def _composite_call(records, row_begin, row_end, ntx: int, nty: int,
     return planes, exec_
 
 
+def _composite_tail_call(records, row_begin, row_end, t_entry, ntx: int,
+                         nty: int, tile_w: int = TILE_W, decim: int = 2):
+    """K3 wrapper: (planes (4, ntiles, pixd) f32 = r, g, b, absolute T;
+    exec (ntiles,) i32), initialised for every tile (a tile with no rows,
+    or skipped at entry, keeps rgb 0 and its entry T). CPU tensors take
+    the plain version; CUDA tensors launch the kernel (or raise)."""
+    dev = records.device
+    if dev.type == "cpu":
+        return _composite_tail_plain(records, row_begin, row_end, t_entry,
+                                     ntx, nty, tile_w, decim)
+    ntiles = ntx * nty
+    _composite_args("K3 tail composite", records, row_begin, row_end,
+                    ntiles, tile_w, dev)
+    if decim not in (1, 2, 4):
+        raise ValueError(f"K3 tail composite: decim {decim} not in 1/2/4")
+    pixd = (TILE_H // decim) * (tile_w // decim)
+    _check_arg(t_entry, "t_entry", _F32, (ntiles, pixd), dev)
+    planes = torch.empty((4, ntiles, pixd), dtype=_F32, device=dev)
+    exec_ = torch.empty(ntiles, dtype=_I32, device=dev)
+    with torch.cuda.device(dev):
+        err = _cuda.lib().gs_composite_tail(
+            records.data_ptr(), records.shape[0], row_begin.data_ptr(),
+            row_end.data_ptr(), t_entry.data_ptr(), planes.data_ptr(),
+            exec_.data_ptr(), ntiles, ntx, tile_w, decim,
+            torch.cuda.current_stream(dev).cuda_stream)
+    _cuda.check(err, "K3 tail composite")
+    _cuda.launches["k3_composite_tail"] += 1
+    return planes, exec_
+
+
+def _decimate_t(t_plane, tile_w: int, decim: int):
+    """(ntiles, 32*tile_w) head transmittance → (ntiles, pixd) means over
+    each decim×decim quad (K3's entry T)."""
+    nt = t_plane.shape[0]
+    t4 = t_plane.reshape(nt, TILE_H // decim, decim, tile_w // decim, decim)
+    return t4.mean(dim=(2, 4)).reshape(nt, -1)
+
+
 # ---------------------------------------------------------------------------
 # finalize + render
 # ---------------------------------------------------------------------------
 
 def _untile(plane, nty: int, ntx: int, tile_w: int = TILE_W):
     """(ntiles, 32*tile_w) tile-flattened → (nty*32, ntx*tile_w) plane."""
-    t = plane[:nty * ntx].reshape(nty, ntx, TILE_H, tile_w)
-    return t.permute(0, 2, 1, 3).reshape(nty * TILE_H, ntx * tile_w)
+    return _untile_decim(plane, nty, ntx, tile_w, 1)
+
+
+def _untile_decim(plane, nty: int, ntx: int, tile_w: int, decim: int):
+    """:func:`_untile` for decimated tail planes: (..., ntiles, pixd) →
+    (..., nty*32/d, ntx*tile_w/d)."""
+    th, tw = TILE_H // decim, tile_w // decim
+    t = plane[..., :nty * ntx, :].reshape(*plane.shape[:-2], nty, ntx, th, tw)
+    return t.transpose(-3, -2).reshape(*plane.shape[:-2], nty * th, ntx * tw)
 
 
 def finalize_planes(planes, visited, nty: int, ntx: int, background,
-                    tile_w: int = TILE_W) -> torch.Tensor:
+                    tile_w: int = TILE_W, tail_decim_planes=None,
+                    decim: int = 2) -> torch.Tensor:
     """Mask never-visited tiles to background (T = 1), untile the planes
     and blend the background through the remaining transmittance →
-    (nty*32, ntx*tile_w, 3). Only the no-tail branch of the JAX function
-    is ported."""
+    (nty*32, ntx*tile_w, 3).
+
+    ``tail_decim_planes`` = (tail planes (4, ntiles, pixd) with absolute T,
+    entry T (ntiles, pixd), tail-visited (ntiles,) bool): the tail's colour
+    and its transmittance ratio (absolute over entry, clipped to [0, 1])
+    are upsampled bilinearly (half-pixel centres, as ``jax.image.resize``),
+    the colour added and the head's T multiplied by the ratio. The
+    ``lod_tail`` slab branch of the JAX function is not ported."""
     vis = visited[:, None]
     r, g, b, t = planes
     rgb = torch.stack([_untile(torch.where(vis, p, 0.0), nty, ntx, tile_w)
                        for p in (r, g, b)], -1)
     tt = _untile(torch.where(vis, t, 1.0), nty, ntx, tile_w)
+    if tail_decim_planes is not None:
+        tail, td, vis_t = tail_decim_planes
+        vt = vis_t[:, None]
+        ratio = torch.clamp(tail[3] / torch.clamp(td, min=1e-20), 0.0, 1.0)
+        low = torch.stack([torch.where(vt, tail[0], 0.0),
+                           torch.where(vt, tail[1], 0.0),
+                           torch.where(vt, tail[2], 0.0),
+                           torch.where(vt, ratio, 1.0)])
+        up = F.interpolate(_untile_decim(low, nty, ntx, tile_w, decim)[None],
+                           size=tuple(tt.shape), mode="bilinear",
+                           align_corners=False)[0]
+        rgb = rgb + up[:3].permute(1, 2, 0)
+        tt = tt * up[3]
     bg = torch.as_tensor(background, dtype=_F32).to(planes.device)
     return rgb + tt[..., None] * bg
 
@@ -629,6 +939,7 @@ class FrameLayout(NamedTuple):
     ntx: int
     nty: int
     tile_w: int
+    records_tl: torch.Tensor | None = None    # packed tail records
 
 
 def _on(x, dev, name: str) -> torch.Tensor:
@@ -644,19 +955,35 @@ def _on(x, dev, name: str) -> torch.Tensor:
 def _frame_layout(cloud, view, proj, width: int, height: int, *,
                   pairs_cap_factor: int | None = None, ky: int = KY,
                   max_splats_per_tile: int | None = None, lod_budget=None,
-                  tile_w: int = TILE_W, exact_seg: int = 8) -> FrameLayout:
+                  tile_w: int = TILE_W, exact_seg: int = 8,
+                  big_splat_cap: int | None = None,
+                  mid_splat_cap: int | None = None,
+                  mid_lo_splat_cap: int | None = None,
+                  corner_cap: int | None = None,
+                  lod_tail_decim: int | None = None) -> FrameLayout:
     """Project (K1), bin and pack one frame: everything before K2."""
     dev = cloud.means.device
     view = _on(view, dev, "view").to(_F32)
     proj = _on(proj, dev, "proj").to(_F32)
+    max_radius = (float(level2_max_radius(tile_w))
+                  if big_splat_cap is not None else None)
     ps = _project_fast(cloud.means, cloud.scales, cloud.quats,
                        cloud.opacities, cloud.colors, view, proj,
-                       width, height, ky=ky)
+                       width, height, ky=ky, max_radius=max_radius)
     records = _make_records(ps)
     ntx, nty = num_tiles(width, height, tile_w)
     n = cloud.num_splats
     ntiles = ntx * nty
-    exact_cap = n * KX * ky + ntiles * CHUNK
+    if corner_cap is not None and ky == 2 and KX == 2:
+        exact_cap = n * 2 + corner_cap * KX * ky + ntiles * CHUNK
+    else:
+        exact_cap = n * KX * ky + ntiles * CHUNK
+    if big_splat_cap is not None:
+        exact_cap += big_splat_cap * _kx2(tile_w) * KY2
+        if mid_splat_cap is not None:
+            exact_cap += mid_splat_cap * _kxm(tile_w) * KY_M
+            if mid_lo_splat_cap is not None:
+                exact_cap += mid_lo_splat_cap * _kxml(tile_w) * KY_ML
     if pairs_cap_factor is None:
         cap_pairs = exact_cap
     else:
@@ -669,9 +996,23 @@ def _frame_layout(cloud, view, proj, width: int, height: int, *,
                          torch.isfinite(ps.depth), ps.depth, ntx, nty,
                          cap_pairs, ky=ky, max_per_tile=max_splats_per_tile,
                          budget=lod_budget, tile_w=tile_w, nseg=exact_seg,
-                         ext=ps.ext)
+                         ext=ps.ext, big_cap=big_splat_cap,
+                         mid_cap=mid_splat_cap, mid_lo_cap=mid_lo_splat_cap,
+                         corner_cap=corner_cap,
+                         tail_decim=(lod_tail_decim if max_splats_per_tile
+                                     is not None else None))
+    records_tl = (None if binned.pack_idx_tl is None
+                  else _pack_records(records, binned.pack_idx_tl))
     return FrameLayout(records=_pack_records(records, binned.pack_idx),
-                       binned=binned, ntx=ntx, nty=nty, tile_w=tile_w)
+                       binned=binned, ntx=ntx, nty=nty, tile_w=tile_w,
+                       records_tl=records_tl)
+
+
+def _tail_entry(head_t, visited, tile_w: int, decim: int):
+    """K3's entry T: the head's T decimated, with head-unvisited tiles
+    (their true entry T is 1) masked to 1."""
+    return _decimate_t(torch.where(visited[:, None], head_t, 1.0), tile_w,
+                       decim).contiguous()
 
 
 def render_gaussians(cloud, view, proj, width: int, height: int,
@@ -695,63 +1036,72 @@ def render_gaussians(cloud, view, proj, width: int, height: int,
                      exact_seg: int = 8,
                      lod_seg: int = 1):
     """Render a ``GaussianCloud`` → (height, width, 3) f32 linear image on
-    the cloud's device (K1 and K2 on CUDA, their plain versions on CPU).
+    the cloud's device (K1, K2 and K3 on CUDA, their plain versions on
+    CPU).
 
     The signature is the JAX ``render_gaussians``'s. Ported: exact mode
-    (``max_splats_per_tile=None``, ``pairs_cap_factor`` positional cap) and
-    the LOD pool with temporal ``lod_budget`` (see :func:`_bin_splats`).
-    ``payload_sort``, ``lod_seg`` and ``interpret`` do not change the
-    output and are ignored; ``exact_seg`` only rounds the exact-mode pair
-    cap, as in the JAX layout. The side channels (``big_splat_cap``,
-    ``mid_splat_cap``, ``mid_lo_splat_cap``, ``corner_cap``), ``lod_tail``,
-    ``lod_tail_decim`` and SH colours (``cam_pos`` with ``sh_rest``) raise
-    ``NotImplementedError``.
+    (``max_splats_per_tile=None``, ``pairs_cap_factor`` positional cap),
+    the LOD pool with temporal ``lod_budget``, the budgeted side channels
+    (``big_splat_cap``, ``mid_splat_cap``, ``mid_lo_splat_cap``,
+    ``corner_cap``; see :func:`_bin_splats`) and the decimated tail
+    (``lod_tail_decim`` pairs per tile at ``lod_tail_d``, default
+    ``_TAIL_D``). ``payload_sort``, ``lod_seg`` and ``interpret`` do not
+    change the output and are ignored; ``exact_seg`` only rounds the
+    exact-mode pair cap, as in the JAX layout. ``lod_tail`` and SH colours
+    (``cam_pos`` with ``sh_rest``) raise ``NotImplementedError``.
 
-    ``return_stats=True`` also returns ``overflow_pairs``,
-    ``overflow_big_splats``, ``tile_exec`` (rows composited before
-    saturation, 0 for unvisited tiles), ``tile_kept``, ``tile_count`` and
-    the ``lossless`` certificate."""
+    ``return_stats=True`` also returns ``overflow_pairs`` (pairs dropped
+    behind the head, or behind the tail when there is one),
+    ``overflow_big_splats`` (splats the side channels dropped),
+    ``tile_exec`` (head rows composited before saturation, 0 for unvisited
+    tiles), ``tile_kept``, ``tile_count`` and the head-based ``lossless``
+    certificate."""
     if mid_splat_cap is not None and big_splat_cap is None:
         raise ValueError("mid_splat_cap requires big_splat_cap")
     if mid_lo_splat_cap is not None and mid_splat_cap is None:
         raise ValueError("mid_lo_splat_cap requires mid_splat_cap")
     if lod_tail_decim is not None and max_splats_per_tile is None:
         raise ValueError("lod_tail_decim requires max_splats_per_tile")
-    unported = {"big_splat_cap": big_splat_cap is not None,
-                "mid_splat_cap": mid_splat_cap is not None,
-                "mid_lo_splat_cap": mid_lo_splat_cap is not None,
-                "corner_cap": corner_cap is not None,
-                "lod_tail": bool(lod_tail),
-                "lod_tail_decim": lod_tail_decim is not None,
+    unported = {"lod_tail": bool(lod_tail),
                 "cam_pos with sh_rest": (cam_pos is not None
                                          and cloud.sh_rest is not None)}
     for name, on in unported.items():
         if on:
             raise NotImplementedError(f"{name} is not ported yet")
+    tail_d = _TAIL_D if lod_tail_d is None else lod_tail_d
 
     lay = _frame_layout(cloud, view, proj, width, height,
                         pairs_cap_factor=pairs_cap_factor, ky=ky,
                         max_splats_per_tile=max_splats_per_tile,
                         lod_budget=lod_budget, tile_w=tile_w,
-                        exact_seg=exact_seg)
+                        exact_seg=exact_seg, big_splat_cap=big_splat_cap,
+                        mid_splat_cap=mid_splat_cap,
+                        mid_lo_splat_cap=mid_lo_splat_cap,
+                        corner_cap=corner_cap, lod_tail_decim=lod_tail_decim)
     b = lay.binned
     planes, texec = _composite_call(lay.records, b.row_begin, b.row_end,
                                     lay.ntx, lay.nty, tile_w)
+    tail_planes = None
+    if lay.records_tl is not None:
+        td = _tail_entry(planes[3], b.visited, tile_w, tail_d)
+        planes_tl, _ = _composite_tail_call(
+            lay.records_tl, b.row_begin_tl, b.row_end_tl, td, lay.ntx,
+            lay.nty, tile_w, tail_d)
+        tail_planes = (planes_tl, td, b.kept_tl > 0)
     img = finalize_planes(planes, b.visited, lay.nty, lay.ntx, background,
-                          tile_w)[:height, :width]
+                          tile_w, tail_planes, tail_d)[:height, :width]
     if not return_stats:
         return img
     tile_exec = torch.where(b.visited, texec, 0)
-    overflow_big = torch.zeros((), dtype=_I32, device=img.device)
     if max_splats_per_tile is not None:
         # certificate: every truncated tile saturated strictly inside its
         # kept list, so every dropped pair lies behind T < _T_EPS
         dry = (b.kept < b.count) & (tile_exec >= b.kept) & (b.count > 0)
-        lossless = (~torch.any(dry)) & (overflow_big == 0)
+        lossless = (~torch.any(dry)) & (b.overflow_big == 0)
     else:
-        lossless = (b.overflow == 0) & (overflow_big == 0)
+        lossless = (b.overflow == 0) & (b.overflow_big == 0)
     stats = {"overflow_pairs": b.overflow,
-             "overflow_big_splats": overflow_big,
+             "overflow_big_splats": b.overflow_big,
              "tile_exec": tile_exec,
              "tile_kept": b.kept, "tile_count": b.count,
              "lossless": lossless}

@@ -1,11 +1,11 @@
-"""Where the time of one fog flythrough frame goes, on a CUDA device.
+"""Where the time of one flythrough frame goes, on a CUDA device.
 
-    python3 -m ray_eater_tpu_torch.profile_gs [--frames 5]
+    python3 -m ray_eater_tpu_torch.profile_gs [--scene inria] [--frames 5]
 
-Renders the bench scene (1M splats, 1920x1080, fog knobs) through the
-port's ``render_gaussians``: a few warm LOD frames with temporal budgets,
-then ``--frames`` LOD frames and as many exact frames under
-``torch.profiler``. Prints, per mode, the CUDA-event time per frame, the
+Renders a bench scene (1M splats, 1920x1080, the scene's knobs) through the
+port's ``render_gaussians``: a few warm LOD frames (with temporal budgets
+where the scene uses them), then ``--frames`` LOD frames and as many exact
+frames under ``torch.profiler``. Prints, per mode, the CUDA-event time per frame, the
 summed device time per frame of the top kernels by name, the number of
 kernel launches per frame and the device busy share (summed kernel time
 over wall time). Needs a CUDA device; exits 2 without one.
@@ -45,6 +45,7 @@ def _profile(torch, frame, frames: int):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--scene", choices=("fog", "inria"), default="fog")
     ap.add_argument("--frames", type=int, default=5)
     ap.add_argument("--top", type=int, default=25)
     args = ap.parse_args(argv)
@@ -54,33 +55,38 @@ def main(argv=None) -> int:
         print("profile_gs: no CUDA device", file=sys.stderr)
         return 2
     from .bench_knobs import flythrough_camera, render_kwargs, resolve_knobs
-    from .models.gaussians import random_cloud
+    from .models.gaussians import inria_cloud, random_cloud
     from .ops import gs
 
     W, H, n = 1920, 1080, 1_000_000
     dev = torch.device("cuda")
-    knobs = resolve_knobs("fog", n, env={})
+    knobs = resolve_knobs(args.scene, n, env={})
     kw_meas = render_kwargs(knobs, exact=False, interpret=False)
     kw_exact = render_kwargs(knobs, exact=True, interpret=False)
     mpt, tile_w = knobs["max_splats_per_tile"], knobs["tile_w"]
     ntx, nty = gs.num_tiles(W, H, tile_w)
-    cloud = random_cloud(n, seed=1, extent=1.0, scale_range=(0.004, 0.02),
-                         device=dev)
+    if args.scene == "inria":
+        cloud = inria_cloud(n, seed=1, device=dev)
+    else:
+        cloud = random_cloud(n, seed=1, extent=1.0,
+                             scale_range=(0.004, 0.02), device=dev)
     view, proj = flythrough_camera(0.5, W, H, device=dev)
-    budget = torch.stack([torch.full((ntx * nty,), mpt, dtype=torch.int32,
-                                     device=dev),
-                          torch.zeros(ntx * nty, dtype=torch.int32,
-                                      device=dev)], -1)
-    for _ in range(8):
-        _, st = gs.render_gaussians(cloud, view, proj, W, H,
-                                    lod_budget=budget, **kw_meas)
-        budget = gs.update_lod_budget(st["tile_exec"], mpt, ntx, nty,
-                                      st["tile_kept"], st["tile_count"],
-                                      dry_floor=knobs["dry_floor"])
+    budget = None
+    if knobs["temporal"]:     # warm the temporal budgets over 8 frames
+        budget = torch.stack([torch.full((ntx * nty,), mpt,
+                                         dtype=torch.int32, device=dev),
+                              torch.zeros(ntx * nty, dtype=torch.int32,
+                                          device=dev)], -1)
+        for _ in range(8):
+            _, st = gs.render_gaussians(cloud, view, proj, W, H,
+                                        lod_budget=budget, **kw_meas)
+            budget = gs.update_lod_budget(st["tile_exec"], mpt, ntx, nty,
+                                          st["tile_kept"], st["tile_count"],
+                                          dry_floor=knobs["dry_floor"])
 
     modes = {
-        "fog LOD": lambda: gs.render_gaussians(cloud, view, proj, W, H,
-                                               lod_budget=budget, **kw_meas),
+        f"{args.scene} LOD": lambda: gs.render_gaussians(
+            cloud, view, proj, W, H, lod_budget=budget, **kw_meas),
         "exact": lambda: gs.render_gaussians(cloud, view, proj, W, H,
                                              **kw_exact),
     }

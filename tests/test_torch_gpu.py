@@ -1,4 +1,4 @@
-"""K1 and K2 on a CUDA device against their plain PyTorch versions.
+"""K1, K2 and K3 on a CUDA device against their plain PyTorch versions.
 
 Marked ``gpu``: each test decides inside itself whether a CUDA device is
 present and skips when there is none. Run on a GPU machine with
@@ -6,16 +6,18 @@ present and skips when there is none. Run on a GPU machine with
 suite's conftest imports JAX, which this file does not need).
 
 Tolerances: K1 floats within rtol 1e-5 and integers equal on all but
-1e-4 of the splats (off by at most 1); K2 planes within 2e-3 max abs and
-1e-5 mean abs (running product vs cumprod), exec equal on ≥ 99.9% of tiles.
+1e-4 of the splats (off by at most 1); K2 and K3 planes within 2e-3 max
+abs and 1e-5 mean abs (running product vs cumprod), exec equal on ≥ 99.9%
+of tiles.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from ray_eater_tpu_torch.bench_knobs import flythrough_camera
-from ray_eater_tpu_torch.models.gaussians import random_cloud
+from ray_eater_tpu_torch.bench_knobs import (flythrough_camera, render_kwargs,
+                                             resolve_knobs)
+from ray_eater_tpu_torch.models.gaussians import inria_cloud, random_cloud
 from ray_eater_tpu_torch.ops import gs
 
 pytestmark = pytest.mark.gpu
@@ -76,5 +78,64 @@ def test_render_is_finite_and_counts_launches(scene):
                               max_splats_per_tile=176)
     assert img.shape == (H, W, 3) and img.is_cuda
     assert bool(torch.isfinite(img).all())
-    assert _cuda.launches == {"k1_project": 1, "k2_composite": 1}
+    assert _cuda.launches == {"k1_project": 1, "k2_composite": 1,
+                              "k3_composite_tail": 0}
     assert np.isfinite(img.cpu().numpy()).all()
+
+
+@pytest.fixture
+def inria():
+    dev = _cuda()
+    n = 100_000
+    cloud = inria_cloud(n, seed=1, device=dev)
+    knobs = resolve_knobs("inria", n, env={})
+    return cloud, knobs, *flythrough_camera(0.0, W, H, device=dev)
+
+
+@pytest.mark.parametrize("decim", [1, 2, 4])
+def test_k3_matches_plain(inria, decim):
+    cloud, knobs, view, proj = inria
+    kw = render_kwargs(knobs, exact=False, interpret=False)
+    lay = gs._frame_layout(cloud, view, proj, W, H, **{k: kw[k] for k in (
+        "pairs_cap_factor", "max_splats_per_tile", "big_splat_cap",
+        "mid_splat_cap", "mid_lo_splat_cap", "corner_cap", "tile_w",
+        "lod_tail_decim")})
+    b, tw = lay.binned, lay.tile_w
+    head, _ = gs._composite_call(lay.records, b.row_begin, b.row_end,
+                                 lay.ntx, lay.nty, tw)
+    td = gs._tail_entry(head[3], b.visited, tw, decim)
+    args = (lay.records_tl, b.row_begin_tl, b.row_end_tl, td, lay.ntx,
+            lay.nty, tw, decim)
+    assert int(b.kept_tl.sum()) > 0
+    (pk, ek) = gs._composite_tail_call(*args)
+    (pp, ep) = gs._composite_tail_plain(*args)
+    err = (pk - pp).abs()
+    assert float(err.max()) <= 2e-3 and float(err.mean()) <= 1e-5
+    assert float((ek == ep).float().mean()) >= 0.999
+
+
+def test_k1_at_the_coarse_radius_ceiling(inria):
+    cloud, knobs, view, proj = inria
+    mr = gs.level2_max_radius(knobs["tile_w"])
+    scal = gs._project_scalars(view, proj, W, H, 0.05, float(mr))
+    args = (cloud.means, cloud.scales, cloud.quats, cloud.opacities, scal)
+    k, p = gs._project_k1(*args), gs._project_plain(*args)
+    assert int((k[6] >= mr).sum()) > 0          # some radii hit the clamp
+    idiff = (k[6:9] - p[6:9]).abs()
+    assert float(idiff.max()) <= 1
+    assert int(((idiff > 0).any(0) | (torch.isfinite(k[5])
+                                      != torch.isfinite(p[5]))).sum()) \
+        <= 1e-4 * cloud.num_splats
+
+
+@pytest.mark.parametrize("exact", [False, True])
+def test_inria_render_counts_launches(inria, exact):
+    from ray_eater_tpu_torch.ops import _cuda
+    cloud, knobs, view, proj = inria
+    kw = render_kwargs(knobs, exact=exact, interpret=False)
+    _cuda.reset_launches()
+    out = gs.render_gaussians(cloud, view, proj, W, H, **kw)
+    img = out if exact else out[0]
+    assert img.shape == (H, W, 3) and bool(torch.isfinite(img).all())
+    assert _cuda.launches == {"k1_project": 1, "k2_composite": 1,
+                              "k3_composite_tail": 0 if exact else 1}

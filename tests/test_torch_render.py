@@ -12,6 +12,8 @@ The JAX side runs 7 renders in interpret mode, cached per module.
 
 import inspect
 
+import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -175,15 +177,49 @@ def test_bit_identical_knobs_do_not_change_output(mpt):
                                    msg=str(extra))
 
 
-@pytest.mark.parametrize("kw", [
-    dict(big_splat_cap=16), dict(big_splat_cap=16, mid_splat_cap=16),
-    dict(big_splat_cap=16, mid_splat_cap=16, mid_lo_splat_cap=16),
-    dict(corner_cap=64), dict(max_splats_per_tile=128, lod_tail=True),
-    dict(max_splats_per_tile=128, lod_tail_decim=256)])
+@pytest.mark.parametrize("kw", [dict(max_splats_per_tile=128, lod_tail=True)])
 def test_unported_knobs_raise(kw):
     view, proj = (np.asarray(m) for m in _camera(256, 96))
     with pytest.raises(NotImplementedError):
         gs.render_gaussians(CLOUD, view, proj, 256, 96, **kw)
+
+
+# the side-channel and decimated-tail knobs map onto _bin_splats's names
+_BIN_KW = dict(big_splat_cap="big_cap", mid_splat_cap="mid_cap",
+               mid_lo_splat_cap="mid_lo_cap", corner_cap="corner_cap",
+               max_splats_per_tile="max_per_tile",
+               lod_tail_decim="tail_decim")
+_jax_bin = jax.jit(jgs._bin_splats, static_argnums=(5, 6, 7),
+                   static_argnames=tuple(_BIN_KW.values()))
+
+
+@pytest.mark.parametrize("kw", [
+    dict(big_splat_cap=16), dict(big_splat_cap=16, mid_splat_cap=16),
+    dict(big_splat_cap=16, mid_splat_cap=16, mid_lo_splat_cap=16),
+    dict(corner_cap=64), dict(max_splats_per_tile=128, lod_tail_decim=256)])
+def test_ported_knobs_match_jax(kw):
+    # accepted by the port's render_gaussians, whose integer stats equal
+    # JAX's binning of the same projected splats under the same knobs
+    view, proj = (np.asarray(m) for m in _camera(256, 96))
+    img, st = gs.render_gaussians(CLOUD, view, proj, 256, 96, BG,
+                                  return_stats=True, **kw)
+    assert img.shape == (96, 256, 3) and bool(torch.isfinite(img).all())
+    ps = gs.project_gaussians(
+        CLOUD.means, CLOUD.scales, CLOUD.quats, CLOUD.opacities, CLOUD.colors,
+        torch.from_numpy(np.array(view)), torch.from_numpy(np.array(proj)),
+        256, 96, max_radius=(gs.level2_max_radius() if "big_splat_cap" in kw
+                    else None))
+    j = [jnp.asarray(np.ascontiguousarray(a.numpy())) for a in (
+        ps.mean2d[:, 0], ps.mean2d[:, 1], ps.radius, torch.isfinite(ps.depth),
+        ps.depth, ps.ext)]
+    ntx, nty = gs.num_tiles(256, 96)
+    *_, overflow, overflow_big, _, (kept, count), _ = _jax_bin(
+        *j[:5], ntx, nty, 1 << 20, ext=j[5],
+        **{_BIN_KW[k]: v for k, v in kw.items()})
+    np.testing.assert_array_equal(st["tile_count"].numpy(), np.asarray(count))
+    np.testing.assert_array_equal(st["tile_kept"].numpy(), np.asarray(kept))
+    assert int(st["overflow_pairs"]) == int(overflow)
+    assert int(st["overflow_big_splats"]) == int(overflow_big)
 
 
 def test_sh_colors_raise_and_knob_errors_match_jax():
