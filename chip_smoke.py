@@ -6,16 +6,21 @@ Run from the repository root on a machine with one NVIDIA GPU:
     python3 chip_smoke.py
 
 It builds the CUDA kernels from ``ray_eater_tpu_torch/csrc/``, holds each
-kernel against its plain PyTorch version, and drives the port's two main
-paths through ``render_gaussians``, each checked against exact-mode frames
-with the PSNR gate of ``bench.py``:
+kernel against its plain PyTorch version, and drives the port's main paths:
 
-* the fog flythrough (1M splats, 1920x1080, temporal LOD budgets): K1, K2;
+* the fog flythrough (1M splats, 1920x1080, temporal LOD budgets) through
+  ``render_gaussians``, checked against exact-mode frames with the PSNR gate
+  of ``bench.py``: K1, K2;
 * the inria flythrough (1M splats, 1920x1080, side channels, corner fan,
-  decimated tail, no temporal budgets): K1, K2 and K3.
+  decimated tail, no temporal budgets), gated the same way: K1, K2 and K3;
+* training: ``gs_trainer.train`` (``make_train_step_pallas``, 1M splats at
+  1920x1080, one warm-up and 20 timed steps, the loss must fall): K4, K5;
+* adaptive density control: ``gs_trainer.train_adc`` (960x540, a
+  16,384-splat hidden scene, capacity 65,536, 8 views, 300 steps with one
+  densify event; the live count must grow): K4, K5.
 
 Launch counts are zeroed just before each main path and read just after
-it; the ``launches`` of the kernels record are their sum over both paths.
+it; the ``launches`` of the kernels record are their sum over the paths.
 Any failed check exits nonzero. The last lines are a ``{"kernels": [...]}``
 record and ``{"ok": true, "device": {...}}``. Without a CUDA device it
 exits 2 and prints no result.
@@ -53,13 +58,29 @@ SMALL_EDGE = 2e-3
 SMALL_EDGE_SHARE = 1e-4
 SMALL_MEAN_ABS = 1e-5
 MIN_PSNR = 30.0        # LOD frame vs exact frame, worst sampled frame
+# K5 vs its plain version, relative to the plain version's largest
+# |gradient|: reassociated sums, shared-memory atomics in no fixed order
+K5_REL = 1e-4
+# GPU vs CPU gradients of one small render_gaussians_diff, relative to
+# the largest |gradient| of the CPU run: the plain projection's radii and
+# the 1/255 cutoff could land on either side of an edge on the two devices
+TRAIN_SMALL_REL = 1e-3
+TRAIN = dict(n=N_SPLATS, w=1920, h=1080, steps=21)   # 1 warm-up + 20 timed
+ADC_ARGS = ["--adc", "--splats", "16384", "--capacity", "65536", "--views",
+            "8", "--width", "960", "--height", "540", "--densify-every",
+            "100", "--steps", "300"]
 
 # H100 SXM peaks (NVIDIA data sheet, at 700 W): HBM bytes/s, f32 FLOP/s
 HBM_BPS = 3.35e12
 F32_FLOPS = 67e12
 K1_OPS_PER_SPLAT = 280   # f32 ops of _cov3d_math + _project_math (source)
 K2_OPS_PER_PAIR_PIXEL = 13   # ~12 flops + one expf per executed pair-pixel
+# K5's operations per executed pair-sample, counted from gs_composite_bwd.cu
+# (expf as one): every pair finds its alpha; a pair at or above the 1/255
+# floor adds the colour terms; one below the 0.99 clamp adds dL/dalpha
+K5_OPS_ALPHA, K5_OPS_LIVE, K5_OPS_UNCLAMPED = 15, 17, 30
 REC_BYTES = 9 * 4        # used record columns read per executed row
+GRAD_BYTES = 12 * 4      # K5's gradient row written per executed row
 
 
 def log(*a):
@@ -102,6 +123,25 @@ def f32(x) -> float:
     return float(np.float32(x))
 
 
+def kernel_record(torch, name: str, source: str, replaces: str, call, plain,
+                  args, max_abs: float, nbytes: int, ops: int, label: str,
+                  reps: int, plain_reps: int = 2):
+    """Times the kernel's wrapper ``call`` and its plain version on
+    ``args`` by CUDA events and returns its record of the kernels line; the
+    bound is the larger of ``nbytes`` over the HBM rate and ``ops`` over
+    the f32 rate."""
+    ms = time_ms(torch, lambda: call(*args), reps)
+    plain_ms = time_ms(torch, lambda: plain(*args), plain_reps, warm=1)
+    t_bytes, t_ops = nbytes / HBM_BPS * 1e3, ops / F32_FLOPS * 1e3
+    log(f"{name} [{label}] time {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+        f"{max(t_bytes, t_ops):.4f} ms ({nbytes} B, {ops} ops)")
+    return dict(name=name, route="cuda", source=source, replaces=replaces,
+                max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
+                bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                library_ms=None)
+
+
 def check_k1(torch, gs, cloud, view, proj, label: str, max_radius: int):
     """K1 vs its plain version on the full cloud at the bench camera."""
     scal = gs._project_scalars(view, proj, W, H, 0.05, float(max_radius))
@@ -127,20 +167,11 @@ def check_k1(torch, gs, cloud, view, proj, label: str, max_radius: int):
     require(rel <= K1_FLOAT_RTOL, f"K1 float rel err {rel} > {K1_FLOAT_RTOL}")
     require(mism <= K1_INT_SHARE * n and imax <= K1_INT_MAXDIFF,
             f"K1 integer mismatches {mism} (max diff {imax})")
-    ms = time_ms(torch, lambda: gs._project_k1(*args), 50)
-    plain_ms = time_ms(torch, lambda: gs._project_plain(*args), 10)
-    nbytes = n * (12 + 12 + 16 + 4 + 9 * 4) + 24 * 4
-    ops = n * K1_OPS_PER_SPLAT
-    t_bytes, t_ops = nbytes / HBM_BPS * 1e3, ops / F32_FLOPS * 1e3
-    log(f"K1 [{label}] time {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
-        f"{max(t_bytes, t_ops):.4f} ms ({nbytes} B, {ops} ops)")
-    return dict(name="K1 project", route="cuda",
-                source="ray_eater_tpu_torch/csrc/gs_project.cu",
-                replaces="ray_eater_tpu/ops/gs.py:370",
-                max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
-                bound_ms=max(t_bytes, t_ops),
-                bound_by="bytes" if t_bytes >= t_ops else "operations",
-                library_ms=None)
+    return kernel_record(
+        torch, "K1 project", "ray_eater_tpu_torch/csrc/gs_project.cu",
+        "ray_eater_tpu/ops/gs.py:370", gs._project_k1, gs._project_plain,
+        args, max_abs, n * (12 + 12 + 16 + 4 + 9 * 4) + 24 * 4,
+        n * K1_OPS_PER_SPLAT, label, reps=50, plain_reps=10)
 
 
 def check_composite(torch, name: str, replaces: str, call, plain, args,
@@ -170,21 +201,13 @@ def check_composite(torch, name: str, replaces: str, call, plain, args,
     require(max_abs <= COMP_MAX_ABS and mean_abs <= COMP_MEAN_ABS,
             f"{name} [{label}] planes differ: max {max_abs} mean {mean_abs}")
     require(same >= COMP_EXEC_SHARE, f"{name} [{label}] exec equal on {same}")
-    ms = time_ms(torch, lambda: call(*args), reps)
-    plain_ms = time_ms(torch, lambda: plain(*args), 2, warm=1)
     # rows read once, row ranges read, entry planes read, 4 planes written
-    nbytes = (executed * REC_BYTES + ntiles * (2 * 4 + 4)
-              + (4 + entry_planes) * ntiles * pix * 4)
-    ops = executed * pix * K2_OPS_PER_PAIR_PIXEL
-    t_bytes, t_ops = nbytes / HBM_BPS * 1e3, ops / F32_FLOPS * 1e3
-    log(f"{name} [{label}] time {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
-        f"{max(t_bytes, t_ops):.4f} ms ({nbytes} B, {ops} ops)")
-    return dict(name=name, route="cuda",
-                source="ray_eater_tpu_torch/csrc/gs_composite.cu",
-                replaces=replaces, max_abs_err=max_abs, ms=ms,
-                plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops),
-                bound_by="bytes" if t_bytes >= t_ops else "operations",
-                library_ms=None)
+    return kernel_record(
+        torch, name, "ray_eater_tpu_torch/csrc/gs_composite.cu", replaces,
+        call, plain, args, max_abs,
+        executed * REC_BYTES + ntiles * (2 * 4 + 4)
+        + (4 + entry_planes) * ntiles * pix * 4,
+        executed * pix * K2_OPS_PER_PAIR_PIXEL, label, reps)
 
 
 def check_k2(torch, gs, lay, label: str, reps: int):
@@ -356,15 +379,235 @@ def main_path(torch, gs, cuda, scene: str, cloud, knobs, kw_meas, kw_exact,
     return launches
 
 
+def train_frame(torch, gs, tr, gs_trainer, dev, n, w, h):
+    """The trainer's first step, taken apart: the hidden scene's target
+    (seed 42), the init cloud's (seed 7) packed training layout, K4's
+    outputs on it and the cotangent of the MSE loss on K4's planes."""
+    view, proj, target, params = gs_trainer.train_setup(n, w, h, dev)
+    with torch.no_grad():
+        c = tr.cloud_from_params(params)
+        lay = gs._diff_layout(c.means, c.scales, c.quats, c.opacities,
+                              c.colors, view, proj, w, h)
+    b = lay.binned
+    args = (lay.records, b.row_begin, b.row_end, lay.ntx, lay.nty,
+            lay.tile_w)
+    planes, ex, ck, off = gs._composite_call_ckpt(*args)
+    leaf = planes.clone().requires_grad_(True)
+    img = gs.finalize_planes(leaf, b.visited, lay.nty, lay.ntx,
+                             (0.0, 0.0, 0.0), lay.tile_w)[:h, :w]
+    loss = torch.mean((img - target) ** 2)
+    loss.backward()
+    return lay, args, (planes, ex, ck, off), leaf.grad.contiguous(), \
+        loss.item()
+
+
+def check_k4(torch, gs, lay, args, k4, label: str, reps: int):
+    """K4 vs its plain version on the training frame: planes, exec, and
+    the checkpoint rows of the chunks both ran; then both timed."""
+    pk, ek, ck, off = k4
+    pp, ep, cp, offp = gs._composite_ckpt_plain(*args)
+    torch.cuda.synchronize()
+    vis = lay.binned.visited
+    err = (pk - pp).abs()[:, vis]
+    max_abs, mean_abs = float(err.max()), float(err.mean())
+    same = float((ek == ep).float().mean())
+    begin, _, first, nch = gs._chunk_spans(args[1], args[2],
+                                           args[0].shape[0])
+    nex_k = gs._executed_chunks(begin, first, ek)
+    nex = torch.minimum(nex_k, gs._executed_chunks(begin, first, ep))
+    j = torch.arange(int(nex.max()), device=nex.device)
+    slots = (off.long()[:, None] + j[None])[j[None] < nex[:, None]]
+    ck_err = float((ck[slots] - cp[slots]).abs().max())
+    ntiles, pix = pk.shape[1], pk.shape[2]
+    executed = int(ek.sum())
+    chunks = int(nex_k.sum())
+    kept = lay.binned.kept
+    saturated = int(((ek < kept) & (kept > 0)).sum())
+    log(f"K4 vs plain [{label}]: {ntiles} tiles x {pix} samples, "
+        f"{args[0].shape[0]} packed rows, {executed} executed in {chunks} "
+        f"chunks ({int(nch.sum())} held), {saturated} tiles saturated "
+        f"inside their lists; planes max abs {max_abs:.3e} "
+        f"mean abs {mean_abs:.3e}; checkpoints max abs {ck_err:.3e} over "
+        f"{slots.numel()} rows; exec equal on {same * 100:.3f}% of tiles; "
+        f"ck_off equal {bool(torch.equal(off, offp))}")
+    require(max_abs <= COMP_MAX_ABS and mean_abs <= COMP_MEAN_ABS
+            and ck_err <= COMP_MAX_ABS,
+            f"K4 [{label}] differs: planes {max_abs}/{mean_abs}, "
+            f"checkpoints {ck_err}")
+    require(same >= COMP_EXEC_SHARE, f"K4 [{label}] exec equal on {same}")
+    require(bool(torch.equal(off, offp)), f"K4 [{label}] ck_off differs")
+    # rows read once, row ranges and offsets read, 4 planes and one
+    # checkpoint row per executed chunk written
+    return kernel_record(
+        torch, "K4 composite ckpt", "ray_eater_tpu_torch/csrc/gs_composite.cu",
+        "ray_eater_tpu/ops/gs.py:1528", gs._composite_call_ckpt,
+        gs._composite_ckpt_plain, args, max(max_abs, ck_err),
+        executed * REC_BYTES + ntiles * (3 * 4 + 4)
+        + (4 * ntiles + chunks) * pix * 4,
+        executed * pix * K2_OPS_PER_PAIR_PIXEL, label, reps)
+
+
+def k5_pairs(torch, gs, args, exec_):
+    """(pairs, live, unclamped): K5's executed pair-samples (every executed
+    row of a tile against each of its samples), those whose alpha reaches
+    the 1/255 floor, and those of them below the 0.99 clamp."""
+    records, row_begin, _, ntx, nty, tile_w = args
+    px, py = gs._tile_samples(ntx, nty, tile_w, 1, records.device)
+    begin, ex = row_begin.long(), exec_.long()
+    pairs = 0
+    counts = torch.zeros(2, dtype=torch.int64, device=records.device)
+    for r in range(int(ex.max())):        # the r-th executed row of each tile
+        t = torch.nonzero(ex > r).flatten()
+        rec = records[begin[t] + r]
+        dx, dy = px[t] - rec[:, 0:1], py[t] - rec[:, 1:2]
+        power = (-0.5 * (rec[:, 2:3] * dx * dx + rec[:, 4:5] * dy * dy)
+                 - rec[:, 3:4] * dx * dy)
+        araw = rec[:, 5:6] * torch.exp(power)
+        live = araw >= gs._ALPHA_MIN
+        pairs += dx.numel()
+        counts += torch.stack([live.sum(),
+                               (live & (araw < gs._ALPHA_MAX)).sum()])
+    return pairs, int(counts[0]), int(counts[1])
+
+
+def check_k5(torch, gs, args, k4, dplanes, label: str, reps: int):
+    """K5 vs its plain version on K4's outputs and the MSE cotangent."""
+    planes, ex, ck, off = k4
+    bwd = (args[0], args[1], args[2], ex, off, ck, planes, dplanes,
+           *args[3:])
+    gk = gs._composite_bwd_call(*bwd)
+    gp = gs._composite_bwd_plain(*bwd)
+    torch.cuda.synchronize()
+    err = (gk - gp).abs()
+    scale = float(gp.abs().max())
+    max_abs, mean_abs = float(err.max()), float(err.mean())
+    rel = max_abs / max(scale, 1e-30)
+    begin, _, first, _ = gs._chunk_spans(args[1], args[2], args[0].shape[0])
+    chunks = int(gs._executed_chunks(begin, first, ex).sum())
+    executed = int(ex.sum())
+    ntiles, pix = planes.shape[1], planes.shape[2]
+    pairs, live, unclamped = k5_pairs(torch, gs, args, ex)
+    log(f"K5 vs plain [{label}]: {executed} executed rows in {chunks} "
+        f"chunks, {pairs} pair-samples, {live} at or above the alpha floor, "
+        f"{unclamped} of them below the clamp; max |grad| {scale:.3e}, max "
+        f"abs err {max_abs:.3e} ({rel:.3e} of it), mean abs err "
+        f"{mean_abs:.3e}; finite "
+        f"{bool(torch.isfinite(gk).all())}; rows with a gradient "
+        f"{int((gk != 0).any(1).sum())}")
+    require(bool(torch.isfinite(gk).all()) and scale > 0,
+            f"K5 [{label}] non-finite or zero gradients")
+    require(rel <= K5_REL, f"K5 [{label}] differs: {rel} of max |grad|")
+    # rows read and gradient rows written once, row ranges/exec/offsets,
+    # one checkpoint row per executed chunk, K4's 4 planes and the 4
+    # cotangent planes
+    return kernel_record(
+        torch, "K5 composite bwd",
+        "ray_eater_tpu_torch/csrc/gs_composite_bwd.cu",
+        "ray_eater_tpu/ops/gs.py:1593", gs._composite_bwd_call,
+        gs._composite_bwd_plain, bwd, max_abs,
+        executed * (REC_BYTES + GRAD_BYTES) + ntiles * 4 * 4
+        + (chunks + 8 * ntiles) * pix * 4,
+        pairs * K5_OPS_ALPHA + live * K5_OPS_LIVE
+        + unclamped * K5_OPS_UNCLAMPED, label, reps)
+
+
+def check_train_small(torch, gs, tr, gs_trainer, devs=("cuda", "cpu")):
+    """Gradients of one render_gaussians_diff (MSE against a target) on
+    CUDA vs on the CPU (plain versions) at a small size, w.r.t. the five
+    cloud fields and mean2d_offset."""
+    n, w, h = SMALL["n"], SMALL["w"], SMALL["h"]
+    names = ("means", "scales", "quats", "opacities", "colors")
+    out = []
+    for dev in devs:
+        view, proj, target, params = gs_trainer.train_setup(n, w, h, dev)
+        c = tr.cloud_from_params(params)
+        leaves = [getattr(c, k).detach().requires_grad_(True) for k in names]
+        off = torch.zeros((n, 2), device=dev, requires_grad=True)
+        img = gs.render_gaussians_diff(*leaves, view, proj, w, h,
+                                       mean2d_offset=off)
+        loss = torch.mean((img - target) ** 2)
+        loss.backward()
+        out.append((loss.item(), [x.grad.cpu() for x in leaves + [off]]))
+    (lg, gg), (lc, gc) = out
+    log(f"small training frame {w}x{h}, {n} splats: loss CUDA {lg:.6e} CPU "
+        f"{lc:.6e}")
+    for name, a, b in zip(names + ("mean2d_offset",), gg, gc):
+        scale = float(b.abs().max())
+        diff = (a - b).abs().reshape(n, -1)
+        rel = float(diff.max()) / max(scale, 1e-30)
+        log(f"  d loss / d {name}: CUDA vs CPU max abs {float(diff.max()):.3e} "
+            f"({rel:.3e} of max |grad| {scale:.3e})")
+        require(bool(torch.isfinite(a).all()) and scale > 0,
+                f"small training gradient {name} non-finite or zero")
+        require(rel <= TRAIN_SMALL_REL,
+                f"small training gradient {name}: rel {rel}")
+    require(abs(lg - lc) <= 1e-4 * lc, f"small training loss {lg} vs {lc}")
+
+
+def train_path(torch, cuda, gs_trainer):
+    """The training main path: gs_trainer.train at 1M splats, 1920x1080
+    (make_train_step_pallas, Adam lr 5e-3)."""
+    n, w, h, steps = TRAIN["n"], TRAIN["w"], TRAIN["h"], TRAIN["steps"]
+    args = gs_trainer.parse_args(["--splats", str(n), "--width", str(w),
+                                  "--height", str(h), "--steps", str(steps),
+                                  "--path", "pallas"])
+    cuda.reset_launches()
+    r = gs_trainer.train(args)
+    torch.cuda.synchronize()
+    launches = dict(cuda.launches)
+    losses = r["losses"]
+    log(f"train {n} splats {w}x{h}: {steps} steps (1 warm-up), "
+        f"{r['ms_per_step']:.3f} ms/step over {steps - 1} timed steps (CUDA "
+        f"events); loss first {losses[0]:.6e} last {losses[-1]:.6e}; peak "
+        f"memory {r['peak_bytes'] / 2**30:.3f} GiB; launches {launches}")
+    log("train losses: " + " ".join(f"{x:.6e}" for x in losses))
+    require(all(np.isfinite(losses)), "non-finite training loss")
+    require(losses[-1] < losses[0], f"training loss did not fall: {losses}")
+    for key in ("k4_composite_ckpt", "k5_composite_bwd"):
+        require(launches[key] == steps,
+                f"{key}: {launches[key]} launches over {steps} steps")
+    for t in r["params"].tensors():
+        require(bool(torch.isfinite(t).all()), "non-finite parameters")
+    return launches, r
+
+
+def adc_path(torch, cuda, gs_trainer):
+    """The ADC main path: gs_trainer.train_adc at the BENCHLOG 2026-08-21
+    configuration."""
+    args = gs_trainer.parse_args(ADC_ARGS)
+    cuda.reset_launches()
+    r = gs_trainer.train_adc(args)
+    torch.cuda.synchronize()
+    launches = dict(cuda.launches)
+    log(f"adc {' '.join(ADC_ARGS)}: {r['n0']} -> {r['n_live']} live splats "
+        f"(cap {r['capacity']}), {r['steps_per_s']:.3f} steps/s after the "
+        f"first window; window losses "
+        + " ".join(f"{x:.6e}" for x in r["losses"])
+        + f"; train PSNR mean {np.mean(r['psnr']):.3f} dB, held-out "
+        f"{' '.join(f'{x:.3f}' for x in r['heldout_psnr'])} dB; densify "
+        f"events {r['events']}; launches {launches}")
+    require(all(np.isfinite(r["losses"])), "non-finite ADC loss")
+    require(len(r["events"]) >= 1, "no densify event in the ADC run")
+    require(r["n_live"] > r["n0"], f"ADC live count did not grow: {r}")
+    require(all(np.isfinite(r["heldout_psnr"])), "non-finite held-out PSNR")
+    steps = int(ADC_ARGS[ADC_ARGS.index("--steps") + 1])
+    for key in ("k4_composite_ckpt", "k5_composite_bwd"):
+        require(launches[key] == steps,
+                f"{key}: {launches[key]} launches over {steps} ADC steps")
+    return launches, r
+
+
 def run() -> int:
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
               "needs one CUDA device", file=sys.stderr)
         return 2
+    from ray_eater_tpu_torch import gs_trainer
     from ray_eater_tpu_torch.bench_knobs import (flythrough_camera,
                                                  render_kwargs,
                                                  resolve_knobs)
+    from ray_eater_tpu_torch.models import gs_training as tr
     from ray_eater_tpu_torch.models.gaussians import inria_cloud, random_cloud
     from ray_eater_tpu_torch.ops import _cuda as cuda
     from ray_eater_tpu_torch.ops import gs
@@ -477,17 +720,39 @@ def run() -> int:
             f"{d['plain_ms']:.4f} ms, bound {d['bound_ms']:.4f} ms "
             f"({d['bound_by']}), max abs err {d['max_abs_err']:.3e}")
 
-    k1["launches"] = fog_launches["k1_project"] + inria_launches["k1_project"]
-    k2["launches"] = (fog_launches["k2_composite"]
-                      + inria_launches["k2_composite"])
-    k3["launches"] = (fog_launches["k3_composite_tail"]
-                      + inria_launches["k3_composite_tail"])
+    del cloud
+    torch.cuda.empty_cache()
+
+    # ---- training: K4, K5 --------------------------------------------------
+    n, w, h = TRAIN["n"], TRAIN["w"], TRAIN["h"]
+    t0 = time.perf_counter()
+    lay, args, k4_out, dplanes, loss0 = train_frame(
+        torch, gs, tr, gs_trainer, dev, n, w, h)
+    log(f"training frame {n} splats {w}x{h} (tile_w {lay.tile_w}, mpt 256): "
+        f"{lay.ntx * lay.nty} tiles, {int(lay.binned.kept.sum())} pairs "
+        f"kept of {int(lay.binned.count.sum())}, MSE {loss0:.6e}, built in "
+        f"{time.perf_counter() - t0:.2f} s")
+    k4 = check_k4(torch, gs, lay, args, k4_out, "training frame", reps=20)
+    k5 = check_k5(torch, gs, args, k4_out, dplanes, "training frame",
+                  reps=20)
+    del lay, args, k4_out, dplanes
+    torch.cuda.empty_cache()
+    check_train_small(torch, gs, tr, gs_trainer)
+    train_launches, _ = train_path(torch, cuda, gs_trainer)
+    torch.cuda.empty_cache()
+    adc_launches, _ = adc_path(torch, cuda, gs_trainer)
+
+    paths = (fog_launches, inria_launches, train_launches, adc_launches)
+    for d, key in ((k1, "k1_project"), (k2, "k2_composite"),
+                   (k3, "k3_composite_tail"), (k4, "k4_composite_ckpt"),
+                   (k5, "k5_composite_bwd")):
+        d["launches"] = sum(p[key] for p in paths)
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     log(f"card: {card}")
     print(json.dumps({"kernels": [{k: d[k] for k in keys}
-                                  for d in (k1, k2, k3)]}))
+                                  for d in (k1, k2, k3, k4, k5)]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

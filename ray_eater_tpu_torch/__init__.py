@@ -1,9 +1,14 @@
 """PyTorch/CUDA port of ``ray_eater_tpu`` for NVIDIA Hopper (H100).
 
 The JAX package stays the reference; this package reproduces its 3D
-Gaussian Splatting render path (``ops.gs.render_gaussians``) with plain
-PyTorch for the tensor glue and two kernels written by hand in CUDA C++
-(``csrc/``): K1, the EWA projection, and K2, the tile composite.
+Gaussian Splatting render path (``ops.gs.render_gaussians``) and its
+single-device training path (``ops.gs.render_gaussians_diff``,
+``models.gs_training``, the adaptive density control of
+``models.gs_densify``, the ``gs_trainer`` entry point) with plain PyTorch
+for the tensor glue and five kernels written by hand in CUDA C++
+(``csrc/``): K1, the EWA projection; K2, the tile composite; K3, the
+composite of the decimated tail; K4, K2 plus the entry-T checkpoints that
+training saves; and K5, the composite's backward.
 
 Nothing here imports JAX or ``ray_eater_tpu``. Entry points run on
 ``"cuda"`` unless the caller passes CPU tensors or ``device="cpu"``; on the

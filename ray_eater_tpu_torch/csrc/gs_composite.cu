@@ -1,10 +1,17 @@
-// K2 — front-to-back tile composite, one CTA per tile — and K3, the same
-// composite on a decimated grid for the LOD's decimated tail.
+// K2 — front-to-back tile composite, one CTA per tile — K3, the same
+// composite on a decimated grid for the LOD's decimated tail, and K4, K2
+// plus entry-T checkpoints for the training backward (K5,
+// gs_composite_bwd.cu).
 //
 // K2 replaces the TPU kernel ray_eater_tpu/ops/gs.py _composite_kernel
 // (:1239) with its chunk body _composite_chunk (:1306), launched by
 // _composite_call (:1375). K3 replaces _composite_tail_kernel (:1416),
-// launched by _composite_tail_call (:1474). The TPU ran a sequential grid
+// launched by _composite_tail_call (:1474). K4 replaces
+// _composite_kernel_ckpt (:1528), launched by _composite_call_ckpt (:1556):
+// at the top of every chunk it runs, the block writes its samples' T into
+// the chunk's checkpoint slot ckpt[ck_off[tile] + j] (j counts the tile's
+// chunks from its first), one (pixd,) row per executed chunk; chunks after
+// saturation write nothing and K5 never reads them. The TPU ran a sequential grid
 // over scalar-prefetched steps and a doubling-scan transmittance prefix;
 // here each CTA owns one tile and walks its packed rows [row_begin,
 // row_end) in order, so the prefix becomes a running product (a
@@ -28,7 +35,8 @@
 //
 // Bound on an H100 SXM: operations. Each executed pair-sample costs about
 // 12 f32 flops and one expf; the records are read once (36 B of used
-// columns a row) and the four planes written once. Making it fast (wgmma,
+// columns a row) and the four planes written once (K4 also writes one
+// (pixd,) f32 checkpoint row per executed chunk). Making it fast (wgmma,
 // TMA, persistent CTAs) is later work: this version stages each chunk's
 // nine used record columns in shared memory and lets each thread own PPT
 // samples in registers — min(pixd, 1024) threads a tile, where
@@ -47,13 +55,15 @@ constexpr float kAlphaMax = 0.99f;
 constexpr float kTEps = 1e-4f;
 
 // blockDim.x threads each own PPT of the tile's pixd = PPT * blockDim.x
-// samples. t_entry (ntiles, pixd) or nullptr for T = 1.
+// samples. t_entry (ntiles, pixd) or nullptr for T = 1; ckpt (nslots,
+// pixd) with per-tile slot offsets ck_off (ntiles,), or nullptr (K2, K3).
 template <int PPT>
 __global__ void __launch_bounds__(kMaxThreads)
 composite_kernel(const float* __restrict__ rec, int nrows,
                  const int* __restrict__ row_begin, const int* __restrict__ row_end,
                  const float* __restrict__ t_entry, float* __restrict__ out,
-                 int* __restrict__ exec_out, int ntiles, int ntx, int tile_w,
+                 int* __restrict__ exec_out, const int* __restrict__ ck_off,
+                 float* __restrict__ ckpt, int ntiles, int ntx, int tile_w,
                  int decim) {
   __shared__ float s[9][kChunk];
   const int nthreads = blockDim.x;
@@ -80,9 +90,15 @@ composite_kernel(const float* __restrict__ rec, int nrows,
   int executed = 0;
   // entry skip: a tile entering saturated runs nothing
   if (e > b && !__syncthreads_and(sat)) {
-    for (int base = (b / kChunk) * kChunk; base < e; base += kChunk) {
+    const int first = (b / kChunk) * kChunk;
+    for (int base = first; base < e; base += kChunk) {
       const int lo = max(b, base);
       const int n = min(e, base + kChunk) - lo;
+      if (ckpt) {   // K4: the chunk's entry T
+        float* dst = ckpt + ((size_t)ck_off[tile] + (base - first) / kChunk) * pixd;
+#pragma unroll
+        for (int k = 0; k < PPT; ++k) dst[threadIdx.x + k * nthreads] = T[k];
+      }
       for (int idx = threadIdx.x; idx < n * 9; idx += nthreads) {
         const int rr = idx / 9;
         const int col = idx - rr * 9;
@@ -130,8 +146,8 @@ composite_kernel(const float* __restrict__ rec, int nrows,
 }
 
 int launch(const void* rec, int nrows, const void* row_begin, const void* row_end,
-           const void* t_entry, void* out, void* exec, int ntiles, int ntx,
-           int tile_w, int decim, void* stream) {
+           const void* t_entry, void* out, void* exec, const void* ck_off,
+           void* ckpt, int ntiles, int ntx, int tile_w, int decim, void* stream) {
   if (tile_w != 32 && tile_w != 64 && tile_w != 128) return (int)cudaErrorInvalidValue;
   if (decim != 1 && decim != 2 && decim != 4) return (int)cudaErrorInvalidValue;
   if (ntiles > 0) {
@@ -142,17 +158,19 @@ int launch(const void* rec, int nrows, const void* row_begin, const void* row_en
     const float* te = (const float*)t_entry;
     float* o = (float*)out;
     int* ex = (int*)exec;
+    const int* co = (const int*)ck_off;
+    float* ck = (float*)ckpt;
     const int pixd = (kTileH / decim) * (tile_w / decim);
     const int threads = pixd < kMaxThreads ? pixd : kMaxThreads;
     switch (pixd / threads) {
       case 1:
-        composite_kernel<1><<<ntiles, threads, 0, st>>>(r, nrows, rb, re, te, o, ex, ntiles, ntx, tile_w, decim);
+        composite_kernel<1><<<ntiles, threads, 0, st>>>(r, nrows, rb, re, te, o, ex, co, ck, ntiles, ntx, tile_w, decim);
         break;
       case 2:
-        composite_kernel<2><<<ntiles, threads, 0, st>>>(r, nrows, rb, re, te, o, ex, ntiles, ntx, tile_w, decim);
+        composite_kernel<2><<<ntiles, threads, 0, st>>>(r, nrows, rb, re, te, o, ex, co, ck, ntiles, ntx, tile_w, decim);
         break;
       case 4:
-        composite_kernel<4><<<ntiles, threads, 0, st>>>(r, nrows, rb, re, te, o, ex, ntiles, ntx, tile_w, decim);
+        composite_kernel<4><<<ntiles, threads, 0, st>>>(r, nrows, rb, re, te, o, ex, co, ck, ntiles, ntx, tile_w, decim);
         break;
       default:
         return (int)cudaErrorInvalidValue;
@@ -169,8 +187,8 @@ int launch(const void* rec, int nrows, const void* row_begin, const void* row_en
 extern "C" int gs_composite(const void* rec, int nrows, const void* row_begin,
                             const void* row_end, void* out, void* exec, int ntiles,
                             int ntx, int tile_w, void* stream) {
-  return launch(rec, nrows, row_begin, row_end, nullptr, out, exec, ntiles, ntx,
-                tile_w, 1, stream);
+  return launch(rec, nrows, row_begin, row_end, nullptr, out, exec, nullptr,
+                nullptr, ntiles, ntx, tile_w, 1, stream);
 }
 
 // K3. As K2, at decim 1, 2 or 4, entered at t_entry (ntiles, pixd) f32;
@@ -179,6 +197,18 @@ extern "C" int gs_composite_tail(const void* rec, int nrows, const void* row_beg
                                  const void* row_end, const void* t_entry, void* out,
                                  void* exec, int ntiles, int ntx, int tile_w,
                                  int decim, void* stream) {
-  return launch(rec, nrows, row_begin, row_end, t_entry, out, exec, ntiles, ntx,
-                tile_w, decim, stream);
+  return launch(rec, nrows, row_begin, row_end, t_entry, out, exec, nullptr,
+                nullptr, ntiles, ntx, tile_w, decim, stream);
+}
+
+// K4. As K2, and at the top of every chunk it runs, tile t writes its T
+// into ckpt row ck_off[t] + j (j: the chunk's index among the tile's
+// chunks, counted from the 128-row block holding row_begin[t]).
+// ck_off (ntiles,) i32; ckpt (nslots, 32*tile_w) f32.
+extern "C" int gs_composite_ckpt(const void* rec, int nrows, const void* row_begin,
+                                 const void* row_end, const void* ck_off, void* out,
+                                 void* exec, void* ckpt, int ntiles, int ntx,
+                                 int tile_w, void* stream) {
+  return launch(rec, nrows, row_begin, row_end, nullptr, out, exec, ck_off, ckpt,
+                ntiles, ntx, tile_w, 1, stream);
 }

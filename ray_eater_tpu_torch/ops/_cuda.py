@@ -1,7 +1,8 @@
 """Build and bind the port's CUDA kernels (``csrc/*.cu``).
 
-The sources compile with ``nvcc`` into one shared library with a plain C
-interface, bound with ``ctypes``. The build runs at first use, into
+The sources compile with ``nvcc`` (one process per source, in parallel)
+and link into one shared library with a plain C interface, bound with
+``ctypes``. The build runs at first use, into
 ``ray_eater_tpu_torch/_build/`` (git-ignored), under a file name keyed by
 the hash of the sources and flags, so an edited source never loads a stale
 library. Nothing here runs at import time: the CPU tests import every
@@ -24,15 +25,17 @@ import subprocess
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent.parent
-_SOURCES = (_PKG / "csrc" / "gs_project.cu", _PKG / "csrc" / "gs_composite.cu")
+_SOURCES = tuple(_PKG / "csrc" / f for f in (
+    "gs_project.cu", "gs_composite.cu", "gs_composite_bwd.cu"))
 _BUILD = _PKG / "_build"
-_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-          "--fmad=false", "-shared", "-Xcompiler", "-fPIC")
+_ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+_FLAGS = (*_ARCH, "-std=c++17", "-O3", "--fmad=false", "-Xcompiler", "-fPIC")
 
 _lib = None
 
 #: kernel launches per wrapper, counted where the wrapper launches
-launches = {"k1_project": 0, "k2_composite": 0, "k3_composite_tail": 0}
+launches = {"k1_project": 0, "k2_composite": 0, "k3_composite_tail": 0,
+            "k4_composite_ckpt": 0, "k5_composite_bwd": 0}
 
 
 def reset_launches() -> None:
@@ -50,8 +53,21 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
+def _run(procs) -> None:
+    """Wait for every (cmd, Popen); raise on the first that failed."""
+    failed = []
+    for cmd, proc in procs:
+        out, err = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"{' '.join(cmd)}\n{out}{err}")
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+
+
 def build() -> Path:
-    """Compile the kernel library if it is not built yet; return its path."""
+    """Compile the kernel library if it is not built yet; return its path.
+    Each source compiles in its own ``nvcc`` process, all started together,
+    then one link makes the shared library."""
     h = hashlib.sha256(" ".join(_FLAGS).encode())
     for src in _SOURCES:
         h.update(src.read_bytes())
@@ -59,12 +75,21 @@ def build() -> Path:
     if out.exists():
         return out
     _BUILD.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    tag = f"{h.hexdigest()[:16]}.{os.getpid()}"
+    objs = [_BUILD / f"{src.stem}.{tag}.o" for src in _SOURCES]
+    compiles = []
+    for src, obj in zip(_SOURCES, objs):
+        cmd = [nvcc, *_FLAGS, "-c", "-o", str(obj), str(src)]
+        compiles.append((cmd, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    _run(compiles)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *_FLAGS, "-o", str(tmp), *map(str, _SOURCES)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+    cmd = [nvcc, *_ARCH, "-shared", "-o", str(tmp), *map(str, objs)]
+    _run([(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                 stderr=subprocess.PIPE, text=True))])
+    for obj in objs:
+        obj.unlink()
     os.replace(tmp, out)
     return out
 
@@ -81,6 +106,11 @@ def lib() -> ctypes.CDLL:
         so.gs_composite.restype = i
         so.gs_composite_tail.argtypes = [p, i, p, p, p, p, p, i, i, i, i, p]
         so.gs_composite_tail.restype = i
+        so.gs_composite_ckpt.argtypes = [p, i, p, p, p, p, p, p, i, i, i, p]
+        so.gs_composite_ckpt.restype = i
+        so.gs_composite_bwd.argtypes = [p, i, p, p, p, p, p, p, p, p, i, i, i,
+                                        p]
+        so.gs_composite_bwd.restype = i
         _lib = so
     return _lib
 

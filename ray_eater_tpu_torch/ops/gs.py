@@ -24,6 +24,12 @@ One frame runs:
 6. **Finalize** — mask unvisited tiles, untile, add the bilinearly
    upsampled tail, blend the background.
 
+Training (:func:`render_gaussians_diff`) differentiates the plain
+projection, bins in LOD mode on detached inputs, and composites through
+:func:`composite_diff`: kernel K4 (``csrc/gs_composite.cu``, K2 plus the
+transmittance at the entry of every chunk it runs) forward and kernel K5
+(``csrc/gs_composite_bwd.cu``, one front-to-back walk per tile) backward.
+
 The float32 arithmetic of every step that feeds an integer (radii, tile
 spans, depth keys, pool grants) keeps the JAX package's operands and order,
 so the two packages bin the same pairs. Each kernel has a plain PyTorch
@@ -166,6 +172,20 @@ def _cov3d_math(sx, sy, sz, qw, qx, qy, qz):
     return dot(0, 0), dot(0, 1), dot(0, 2), dot(1, 1), dot(1, 2), dot(2, 2)
 
 
+def quat_to_rotmat(q: torch.Tensor) -> torch.Tensor:
+    """(N, 4) wxyz quaternions → (N, 3, 3) rotation matrices."""
+    q = q / torch.linalg.norm(q, dim=-1, keepdim=True).clamp(min=1e-12)
+    w, x, y, z = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
+    return torch.stack([
+        torch.stack([1 - 2 * (y * y + z * z), 2 * (x * y - w * z),
+                     2 * (x * z + w * y)], -1),
+        torch.stack([2 * (x * y + w * z), 1 - 2 * (x * x + z * z),
+                     2 * (y * z - w * x)], -1),
+        torch.stack([2 * (x * z - w * y), 2 * (y * z + w * x),
+                     1 - 2 * (x * x + y * y)], -1),
+    ], -2)
+
+
 def _project_math(px_, py_, pz_, s00, s01, s02, s11, s12, s22, op, scal):
     """Elementwise EWA projection (the JAX ``_project_math``, operand for
     operand). Returns (mx, my, conic_a, conic_b, conic_c, depth (+inf when
@@ -208,16 +228,20 @@ def _project_math(px_, py_, pz_, s00, s01, s02, s11, s12, s22, op, scal):
     c = j11 * (j11 * c11 + j12 * c12) + j12 * (j11 * c12 + j12 * c22) + 0.3
 
     det = a * c - bb * bb
-    mid = 0.5 * (a + c)
-    lam_max = mid + torch.sqrt(torch.clamp(mid * mid - det, min=0.0))
+    # the integer radii take no gradient (JAX's ceil gives a symbolic zero);
+    # from detached operands, so autograd never meets sqrt'(0) = inf where
+    # mid² = det (a circular footprint), which would turn the zero into NaN
+    ad, cd, detd, opd = a.detach(), c.detach(), det.detach(), op.detach()
+    mid = 0.5 * (ad + cd)
+    lam_max = mid + torch.sqrt(torch.clamp(mid * mid - detd, min=0.0))
     scut = torch.clamp(torch.sqrt(torch.clamp(
-        2.0 * torch.log(torch.clamp(op, min=_ALPHA_MIN) * (1.0 / _ALPHA_MIN)),
+        2.0 * torch.log(torch.clamp(opd, min=_ALPHA_MIN) * (1.0 / _ALPHA_MIN)),
         min=1e-6)), max=3.0)
     radius = torch.ceil(scut * torch.sqrt(torch.clamp(lam_max, min=0.0)))
     radius = torch.minimum(radius, max_radius)
-    rx = torch.minimum(torch.ceil(scut * torch.sqrt(torch.clamp(a, min=0.0))),
+    rx = torch.minimum(torch.ceil(scut * torch.sqrt(torch.clamp(ad, min=0.0))),
                        radius)
-    ry = torch.minimum(torch.ceil(scut * torch.sqrt(torch.clamp(c, min=0.0))),
+    ry = torch.minimum(torch.ceil(scut * torch.sqrt(torch.clamp(cd, min=0.0))),
                        radius)
 
     inv_det = 1.0 / torch.where(det > 1e-12, det, 1.0)
@@ -718,13 +742,43 @@ def _pack_records(records: torch.Tensor, pack_idx: torch.Tensor):
 # K2 (head) and K3 (decimated tail): composite
 # ---------------------------------------------------------------------------
 
+def _tile_samples(ntx: int, nty: int, tile_w: int, decim: int, dev):
+    """(px, py) (ntiles, pixd) f32: sample i of tile t at the centre of its
+    decim×decim quad, pixd = (32/decim)·(tile_w/decim)."""
+    ntiles = ntx * nty
+    twd = tile_w // decim
+    pix = (TILE_H // decim) * twd
+    tid = torch.arange(ntiles, device=dev)
+    i = torch.arange(pix, device=dev)
+    shift = twd.bit_length() - 1
+    px = ((i & (twd - 1))[None] * decim + ((tid % ntx) * tile_w)[:, None]) \
+        .to(_F32) + 0.5 * decim
+    py = ((i >> shift)[None] * decim + ((tid // ntx) * TILE_H)[:, None]) \
+        .to(_F32) + 0.5 * decim
+    return px, py
+
+
+def _chunk_spans(row_begin, row_end, nrows: int):
+    """(begin, end, first, nch) i64 (ntiles,): each tile's row range (end
+    clipped to ``nrows``), the 128-row block holding its first row, and the
+    number of chunks its range spans (0 when empty)."""
+    begin = row_begin.long()
+    end = torch.clamp(row_end.long(), max=nrows)
+    first = (begin // CHUNK) * CHUNK
+    nch = torch.where(end > begin, (end - first + CHUNK - 1) // CHUNK, 0)
+    return begin, end, first, nch
+
+
 def _composite_grid_plain(records, row_begin, row_end, t_entry, ntx: int,
-                          nty: int, tile_w: int, decim: int):
+                          nty: int, tile_w: int, decim: int, ckpt=None,
+                          ck_off=None):
     """Plain PyTorch composite of every tile's packed rows over a sample
     grid decimated by ``decim``, the body of K2's (``decim`` 1, ``t_entry``
-    None: T starts at 1) and K3's plain versions. Returns (planes (4,
+    None: T starts at 1), K3's and K4's plain versions. Returns (planes (4,
     ntiles, pixd) f32 = r, g, b, absolute T; exec (ntiles,) i32), pixd =
-    (32/decim)·(tile_w/decim); ``t_entry`` is (ntiles, pixd).
+    (32/decim)·(tile_w/decim); ``t_entry`` is (ntiles, pixd). With ``ckpt``
+    (nslots, pixd), each tile's T at the entry of its chunk j is written to
+    row ``ck_off[t] + j``, for the chunks it runs (K4).
 
     Sample i of tile t sits at the centre of its decim×decim quad. Tile t
     composites packed rows [row_begin[t], row_end[t]) front to back, in
@@ -736,24 +790,14 @@ def _composite_grid_plain(records, row_begin, row_end, t_entry, ntx: int,
     product, reassociated)."""
     dev = records.device
     ntiles = ntx * nty
-    twd = tile_w // decim
-    pix = (TILE_H // decim) * twd
+    pix = (TILE_H // decim) * (tile_w // decim)
     nrows = records.shape[0]
-    tid = torch.arange(ntiles, device=dev)
-    i = torch.arange(pix, device=dev)
-    shift = twd.bit_length() - 1
-    px = ((i & (twd - 1))[None] * decim + ((tid % ntx) * tile_w)[:, None]) \
-        .to(_F32) + 0.5 * decim
-    py = ((i >> shift)[None] * decim + ((tid // ntx) * TILE_H)[:, None]) \
-        .to(_F32) + 0.5 * decim
+    px, py = _tile_samples(ntx, nty, tile_w, decim, dev)
     rgb = torch.zeros((3, ntiles, pix), dtype=_F32, device=dev)
     tt = (torch.ones((ntiles, pix), dtype=_F32, device=dev)
           if t_entry is None else t_entry.to(_F32).clone())
     exec_ = torch.zeros(ntiles, dtype=_I32, device=dev)
-    begin = row_begin.long()
-    end = torch.clamp(row_end.long(), max=nrows)
-    first = (begin // CHUNK) * CHUNK
-    nch = torch.where(end > begin, (end - first + CHUNK - 1) // CHUNK, 0)
+    begin, end, first, nch = _chunk_spans(row_begin, row_end, nrows)
     running = (nch > 0) & (tt.amax(1) >= _T_EPS)
     group = max(1, (1 << 25) // (CHUNK * pix))   # bounds the temporaries
     rows = torch.arange(CHUNK, device=dev)
@@ -764,6 +808,8 @@ def _composite_grid_plain(records, row_begin, row_end, t_entry, ntx: int,
             break
         for s in range(0, act.numel(), group):
             g = act[s:s + group]
+            if ckpt is not None:
+                ckpt[ck_off[g].long() + j] = tt[g]
             idx = (first[g] + j * CHUNK)[:, None] + rows[None]   # (G, C)
             live = (idx >= begin[g][:, None]) & (idx < end[g][:, None])
             rec = records[idx.clamp(0, max(nrows - 1, 0))]      # (G, C, 12)
@@ -870,6 +916,220 @@ def _composite_tail_call(records, row_begin, row_end, t_entry, ntx: int,
     _cuda.check(err, "K3 tail composite")
     _cuda.launches["k3_composite_tail"] += 1
     return planes, exec_
+
+
+# ---------------------------------------------------------------------------
+# K4 (forward + entry-T checkpoints), K5 (backward) and the
+# differentiable composite built from them
+# ---------------------------------------------------------------------------
+
+def _ckpt_offsets(row_begin, row_end, nrows: int):
+    """Checkpoint layout of K4/K5: (ck_off (ntiles,) i32, nslots). Tile t's
+    chunk j (counted from the 128-row block holding its first row) has its
+    entry T in row ``ck_off[t] + j``; ``ck_off`` is the exclusive cumsum of
+    the chunk counts. A block shared by two tiles (direct layout) has a
+    slot per tile. ``nslots`` = ceil(nrows/128) + ntiles bounds the sum of
+    the chunk counts without a host sync."""
+    nch = _chunk_spans(row_begin, row_end, nrows)[3]
+    off = torch.cumsum(nch, 0) - nch
+    return off.to(_I32), -(-nrows // CHUNK) + row_begin.shape[0]
+
+
+def _composite_ckpt_plain(records, row_begin, row_end, ntx: int, nty: int,
+                          tile_w: int = TILE_W):
+    """Plain PyTorch version of K4: K2's (planes, exec) plus (ckpt (nslots,
+    32*tile_w) f32, ck_off (ntiles,) i32); rows of chunks that did not run
+    stay 0."""
+    ck_off, nslots = _ckpt_offsets(row_begin, row_end, records.shape[0])
+    ckpt = torch.zeros((nslots, TILE_H * tile_w), dtype=_F32,
+                       device=records.device)
+    planes, exec_ = _composite_grid_plain(records, row_begin, row_end, None,
+                                          ntx, nty, tile_w, 1, ckpt, ck_off)
+    return planes, exec_, ckpt, ck_off
+
+
+def _composite_call_ckpt(records, row_begin, row_end, ntx: int, nty: int,
+                         tile_w: int = TILE_W):
+    """K4 wrapper: (planes (4, ntiles, 32*tile_w), exec (ntiles,) i32, ckpt
+    (nslots, 32*tile_w), ck_off (ntiles,) i32); only the checkpoint rows of
+    chunks that ran are defined. CPU tensors take the plain version; CUDA
+    tensors launch the kernel (or raise)."""
+    dev = records.device
+    if dev.type == "cpu":
+        return _composite_ckpt_plain(records, row_begin, row_end, ntx, nty,
+                                     tile_w)
+    ntiles = ntx * nty
+    _composite_args("K4 composite ckpt", records, row_begin, row_end, ntiles,
+                    tile_w, dev)
+    ck_off, nslots = _ckpt_offsets(row_begin, row_end, records.shape[0])
+    pix = TILE_H * tile_w
+    planes = torch.empty((4, ntiles, pix), dtype=_F32, device=dev)
+    exec_ = torch.empty(ntiles, dtype=_I32, device=dev)
+    ckpt = torch.empty((nslots, pix), dtype=_F32, device=dev)
+    with torch.cuda.device(dev):
+        err = _cuda.lib().gs_composite_ckpt(
+            records.data_ptr(), records.shape[0], row_begin.data_ptr(),
+            row_end.data_ptr(), ck_off.data_ptr(), planes.data_ptr(),
+            exec_.data_ptr(), ckpt.data_ptr(), ntiles, ntx, tile_w,
+            torch.cuda.current_stream(dev).cuda_stream)
+    _cuda.check(err, "K4 composite ckpt")
+    _cuda.launches["k4_composite_ckpt"] += 1
+    return planes, exec_, ckpt, ck_off
+
+
+def _executed_chunks(begin, first, exec_):
+    """Chunks each tile ran in the forward: its rows b .. b+exec-1 end in
+    chunk (b+exec-1)//128 - first//128."""
+    ex = exec_.long()
+    return torch.where(ex > 0, (begin + ex - 1) // CHUNK - first // CHUNK + 1,
+                       0)
+
+
+def _composite_bwd_plain(records, row_begin, row_end, exec_, ck_off, ckpt,
+                         planes, dplanes, ntx: int, nty: int,
+                         tile_w: int = TILE_W):
+    """Plain PyTorch version of K5: dL/d(packed records) (R, 12) f32 in the
+    columns mx, my, conic a, b, c, opacity, r, g, b, 0, 0, 0, from K4's
+    (r, g, b, T) ``planes`` and their cotangent ``dplanes`` (both (4,
+    ntiles, 32*tile_w)). Only the T plane is read here; the kernel also
+    reads the colour planes (Σ c·w over every executed row), which give it
+    the suffix sums in a first-to-last walk.
+
+    Each tile's executed chunks are walked last to first (all running
+    tiles in parallel), T_i rebuilt inside a chunk from its checkpoint by a
+    ``cumprod`` of (1 - α), the within-chunk suffix Σ_{j>i} (c_j·dC) w_j by
+    a reversed ``cumsum``, the later chunks' part carried per sample.
+    dL/dα_i = (c_i·dC) T_i − (suffix_i + dT·T_final) / (1 − α_i); no
+    gradient through α where it was clamped at 0.99 or floored below 1/255,
+    and none for rows outside [row_begin, row_end) or in chunks the forward
+    did not run."""
+    dev = records.device
+    ntiles = ntx * nty
+    pix = TILE_H * tile_w
+    nrows = records.shape[0]
+    px, py = _tile_samples(ntx, nty, tile_w, 1, dev)
+    begin, end, first, _ = _chunk_spans(row_begin, row_end, nrows)
+    nex = _executed_chunks(begin, first, exec_)
+    off = ck_off.long()
+    grad = torch.zeros((nrows, _ROWS), dtype=_F32, device=dev)
+    carry = torch.zeros((ntiles, pix), dtype=_F32, device=dev)
+    dtt = dplanes[3] * planes[3]
+    group = max(1, (1 << 24) // (CHUNK * pix))   # bounds the temporaries
+    rows = torch.arange(CHUNK, device=dev)
+    nmax = int(nex.max()) if ntiles else 0
+    for j in range(nmax - 1, -1, -1):
+        act = torch.nonzero(nex > j).flatten()
+        for s in range(0, act.numel(), group):
+            g = act[s:s + group]
+            idx = (first[g] + j * CHUNK)[:, None] + rows[None]   # (G, C)
+            live = (idx >= begin[g][:, None]) & (idx < end[g][:, None])
+            rec = records[idx.clamp(0, max(nrows - 1, 0))]      # (G, C, 12)
+
+            def col(c):
+                return rec[:, :, c, None]                         # (G, C, 1)
+            dx = px[g][:, None, :] - col(_MX)
+            dy = py[g][:, None, :] - col(_MY)
+            power = (-0.5 * (col(_CA) * dx * dx + col(_CC) * dy * dy)
+                     - col(_CB) * dx * dy)
+            ep = torch.exp(power)
+            araw = col(_OP) * ep
+            keep = live[:, :, None] & (araw >= _ALPHA_MIN)
+            alpha = torch.where(keep, torch.clamp(araw, max=_ALPHA_MAX), 0.0)
+            om = 1.0 - alpha
+            incl = torch.cumprod(om, dim=1)
+            excl = torch.cat([torch.ones_like(incl[:, :1]), incl[:, :-1]], 1)
+            t_i = ckpt[off[g] + j][:, None, :] * excl
+            w = alpha * t_i
+            d_c = [dplanes[c][g][:, None, :] for c in range(3)]
+            a_dot = col(_CR) * d_c[0] + col(_CG) * d_c[1] + col(_CB2) * d_c[2]
+            aw = a_dot * w
+            later = torch.flip(torch.cumsum(torch.flip(aw, [1]), 1), [1]) - aw
+            suffix = later + carry[g][:, None, :]
+            d_alpha = (a_dot * t_i - (suffix + dtt[g][:, None, :])
+                       / torch.clamp(om, min=1e-6))
+            gm = keep & (araw < _ALPHA_MAX)
+            gpow = torch.where(gm, alpha * d_alpha, 0.0)
+            out = torch.stack([
+                (gpow * (col(_CA) * dx + col(_CB) * dy)).sum(2),
+                (gpow * (col(_CB) * dx + col(_CC) * dy)).sum(2),
+                (gpow * (-0.5) * dx * dx).sum(2),
+                (gpow * (-dx * dy)).sum(2),
+                (gpow * (-0.5) * dy * dy).sum(2),
+                torch.where(gm, ep * d_alpha, 0.0).sum(2),
+                (w * d_c[0]).sum(2), (w * d_c[1]).sum(2),
+                (w * d_c[2]).sum(2)], -1)                      # (G, C, 9)
+            grad[idx[live], :9] = out[live]
+            carry[g] += aw.sum(1)
+    return grad
+
+
+def _composite_bwd_call(records, row_begin, row_end, exec_, ck_off, ckpt,
+                        planes, dplanes, ntx: int, nty: int,
+                        tile_w: int = TILE_W):
+    """K5 wrapper: dL/d(packed records) (R, 12) f32 from K4's outputs
+    (its planes among them) and the (4, ntiles, 32*tile_w) cotangent
+    ``dplanes``; zero-filled, the kernel writes every row of every chunk
+    the forward ran. CPU tensors take the plain version; CUDA tensors
+    launch the kernel (or raise)."""
+    dev = records.device
+    if dev.type == "cpu":
+        return _composite_bwd_plain(records, row_begin, row_end, exec_,
+                                    ck_off, ckpt, planes, dplanes, ntx, nty,
+                                    tile_w)
+    ntiles = ntx * nty
+    pix = TILE_H * tile_w
+    _composite_args("K5 composite bwd", records, row_begin, row_end, ntiles,
+                    tile_w, dev)
+    _check_arg(exec_, "exec", _I32, (ntiles,), dev)
+    _check_arg(ck_off, "ck_off", _I32, (ntiles,), dev)
+    _check_arg(ckpt, "ckpt", _F32, (ckpt.shape[0], pix), dev)
+    _check_arg(planes, "planes", _F32, (4, ntiles, pix), dev)
+    _check_arg(dplanes, "dplanes", _F32, (4, ntiles, pix), dev)
+    grad = torch.zeros((records.shape[0], _ROWS), dtype=_F32, device=dev)
+    with torch.cuda.device(dev):
+        err = _cuda.lib().gs_composite_bwd(
+            records.data_ptr(), records.shape[0], row_begin.data_ptr(),
+            row_end.data_ptr(), exec_.data_ptr(), ck_off.data_ptr(),
+            ckpt.data_ptr(), planes.data_ptr(), dplanes.data_ptr(),
+            grad.data_ptr(), ntiles, ntx, tile_w,
+            torch.cuda.current_stream(dev).cuda_stream)
+    _cuda.check(err, "K5 composite bwd")
+    _cuda.launches["k5_composite_bwd"] += 1
+    return grad
+
+
+class _CompositeDiff(torch.autograd.Function):
+    """K4 forward, K5 backward; the row ranges get no gradient."""
+
+    @staticmethod
+    def forward(ctx, packed, row_begin, row_end, ntx, nty, tile_w):
+        planes, exec_, ckpt, ck_off = _composite_call_ckpt(
+            packed, row_begin, row_end, ntx, nty, tile_w)
+        ctx.save_for_backward(packed, row_begin, row_end, exec_, ck_off,
+                              ckpt, planes)
+        ctx.grid = (ntx, nty, tile_w)
+        return planes
+
+    @staticmethod
+    def backward(ctx, d_planes):
+        packed, row_begin, row_end, exec_, ck_off, ckpt, planes = \
+            ctx.saved_tensors
+        grad = _composite_bwd_call(packed, row_begin, row_end, exec_, ck_off,
+                                   ckpt, planes, d_planes.contiguous(),
+                                   *ctx.grid)
+        return grad, None, None, None, None, None
+
+
+def composite_diff(packed, row_begin, row_end, ntx: int, nty: int,
+                   tile_w: int = TILE_W) -> torch.Tensor:
+    """Differentiable composite → planes (4, ntiles, 32*tile_w) = r, g, b,
+    T (the JAX ``composite_diff``). When autograd records the call, the
+    forward is K4 (saving its entry-T checkpoints) and the backward K5;
+    otherwise it is K2 alone, as the JAX primal is."""
+    if torch.is_grad_enabled() and packed.requires_grad:
+        return _CompositeDiff.apply(packed, row_begin, row_end, ntx, nty,
+                                    tile_w)
+    return _composite_call(packed, row_begin, row_end, ntx, nty, tile_w)[0]
 
 
 def _decimate_t(t_plane, tile_w: int, decim: int):
@@ -1106,6 +1366,67 @@ def render_gaussians(cloud, view, proj, width: int, height: int,
              "tile_kept": b.kept, "tile_count": b.count,
              "lossless": lossless}
     return img, stats
+
+
+def _diff_layout(means, scales, quats, opacities, colors, view, proj,
+                 width: int, height: int, max_splats_per_tile: int = 256,
+                 ky: int = KY, tile_w: int = TILE_W,
+                 mean2d_offset=None) -> FrameLayout:
+    """The training frame up to the composite: the plain projection (under
+    autograd when the inputs require grad), LOD binning on detached
+    inputs, and the row gather of the records into packed order."""
+    dev = means.device
+    view = _on(view, dev, "view").to(_F32)
+    proj = _on(proj, dev, "proj").to(_F32)
+    ps = project_gaussians(means, scales, quats, opacities, colors, view,
+                           proj, width, height, ky=ky)
+    if mean2d_offset is not None:
+        ps = ps._replace(mean2d=ps.mean2d + mean2d_offset)
+    records = _make_records(ps)
+    ntx, nty = num_tiles(width, height, tile_w)
+    cap_pairs = _pad_to(means.shape[0] * KX * ky + ntx * nty * CHUNK, CHUNK)
+    mean2d, depth = ps.mean2d.detach(), ps.depth.detach()
+    b = _bin_splats(mean2d[:, 0], mean2d[:, 1], ps.radius,
+                    torch.isfinite(depth), depth, ntx, nty, cap_pairs, ky=ky,
+                    max_per_tile=max_splats_per_tile, tile_w=tile_w,
+                    ext=ps.ext)
+    # index_select, not records[pack_idx]: the backward of advanced
+    # indexing sorts the indices and walks each run of equal ones serially,
+    # and the pool's unfilled rows all point at one splat (~80k of them at
+    # 1M splats / 1080p); index_select's backward is index_add_
+    return FrameLayout(records=records.index_select(0, b.pack_idx),
+                       binned=b, ntx=ntx, nty=nty, tile_w=tile_w)
+
+
+def render_gaussians_diff(means, scales, quats, opacities, colors,
+                          view, proj, width: int, height: int,
+                          background=(0.0, 0.0, 0.0),
+                          max_splats_per_tile: int = 256,
+                          ky: int = KY,
+                          interpret: bool = False,
+                          tile_w: int = TILE_W,
+                          mean2d_offset=None) -> torch.Tensor:
+    """Differentiable render → (height, width, 3), the 1M-splat training
+    path (the JAX ``render_gaussians_diff``).
+
+    The projection is the plain, autograd-friendly :func:`project_gaussians`
+    (not K1: the JAX package differentiates its jnp path too). Binning runs
+    in LOD mode on detached inputs (the JAX ``stop_gradient``), the pack is
+    a row gather whose backward scatter-adds the packed rows' gradients
+    onto the splat records, and the composite is :func:`composite_diff`
+    (K4 forward, K5 backward on CUDA). ``mean2d_offset`` (N, 2), usually
+    zeros, is added to the projected screen means: its gradient is the
+    per-splat view-space positional gradient that densification thresholds
+    on. ``interpret`` is accepted for signature parity and ignored."""
+    lay = _diff_layout(means, scales, quats, opacities, colors, view, proj,
+                       width, height, max_splats_per_tile, ky, tile_w,
+                       mean2d_offset)
+    b = lay.binned
+    planes = composite_diff(lay.records, b.row_begin, b.row_end, lay.ntx,
+                            lay.nty, tile_w)
+    img = finalize_planes(planes, b.visited, lay.nty, lay.ntx, background,
+                          tile_w)
+    return img[:height, :width]
 
 
 def update_lod_budget(tile_exec, max_splats_per_tile: int,

@@ -1,14 +1,20 @@
-"""Where the time of one flythrough frame goes, on a CUDA device.
+"""Where the time of one flythrough frame, or one training step, goes on a
+CUDA device.
 
-    python3 -m ray_eater_tpu_torch.profile_gs [--scene inria] [--frames 5]
+    python3 -m ray_eater_tpu_torch.profile_gs [--scene fog|inria|train]
+        [--frames 5]
 
-Renders a bench scene (1M splats, 1920x1080, the scene's knobs) through the
-port's ``render_gaussians``: a few warm LOD frames (with temporal budgets
-where the scene uses them), then ``--frames`` LOD frames and as many exact
-frames under ``torch.profiler``. Prints, per mode, the CUDA-event time per frame, the
-summed device time per frame of the top kernels by name, the number of
-kernel launches per frame and the device busy share (summed kernel time
-over wall time). Needs a CUDA device; exits 2 without one.
+``fog``/``inria`` render a bench scene (1M splats, 1920x1080, the scene's
+knobs) through the port's ``render_gaussians``: a few warm LOD frames (with
+temporal budgets where the scene uses them), then ``--frames`` LOD frames
+and as many exact frames under ``torch.profiler``. ``train`` profiles
+``--frames`` steps of ``make_train_step_pallas`` in the trainer's plain
+configuration (1M splats at 1920x1080, mpt 256, tile_w 128, Adam lr 5e-3;
+``gs_trainer``) after one warm-up step. Prints, per mode, the CUDA-event
+time per frame (or step), the summed device time per frame of the top
+kernels by name, the number of kernel launches per frame and the device
+busy share (summed kernel time over wall time). Needs a CUDA device; exits
+2 without one.
 """
 
 from __future__ import annotations
@@ -34,8 +40,10 @@ def _profile(torch, frame, frames: int):
     wall_ms = a.elapsed_time(b)
     rows = []
     for e in prof.key_averages():
-        if e.device_type != DeviceType.CUDA:
-            continue            # host-side ops; their kernels are rows too
+        if e.device_type != DeviceType.CUDA or e.is_user_annotation:
+            # host-side ops, and annotated ranges such as the optimizer's
+            # step: their kernels are rows too
+            continue
         dev_us = e.self_device_time_total
         if dev_us > 0:
             rows.append((dev_us / 1e3 / frames, e.count / frames, e.key))
@@ -45,7 +53,8 @@ def _profile(torch, frame, frames: int):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--scene", choices=("fog", "inria"), default="fog")
+    ap.add_argument("--scene", choices=("fog", "inria", "train"),
+                    default="fog")
     ap.add_argument("--frames", type=int, default=5)
     ap.add_argument("--top", type=int, default=25)
     args = ap.parse_args(argv)
@@ -54,18 +63,45 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("profile_gs: no CUDA device", file=sys.stderr)
         return 2
+    W, H, n = 1920, 1080, 1_000_000
+    dev = torch.device("cuda")
+    if args.scene == "train":
+        modes = {"train step": _train_step(W, H, n, dev)}
+    else:
+        modes = _render_modes(torch, args.scene, W, H, n, dev)
+    for name, frame in modes.items():
+        ms, rows = _profile(torch, frame, args.frames)
+        busy = sum(r[0] for r in rows)
+        launches = sum(r[1] for r in rows)
+        print(f"== {name}: {ms:.3f} ms/frame (CUDA events), device busy "
+              f"{busy:.3f} ms/frame ({100 * busy / ms:.1f}%), "
+              f"{launches:.0f} kernel launches/frame")
+        for dev_ms, count, key in rows[:args.top]:
+            print(f"  {dev_ms:9.4f} ms/frame  {count:6.1f}/frame  {key[:90]}")
+    return 0
+
+
+def _train_step(W, H, n, dev):
+    """One training step of the trainer's plain run, as a closure."""
+    from .gs_trainer import train_setup
+    from .models import gs_training as tr
+    view, proj, target, params = train_setup(n, W, H, dev)
+    step = tr.make_train_step_pallas(tr.adam(params, 5e-3), view, proj)
+    return lambda: step(params, target)
+
+
+def _render_modes(torch, scene, W, H, n, dev):
+    """The LOD and exact frame closures of a flythrough scene, its temporal
+    budgets (if any) warmed over 8 frames."""
     from .bench_knobs import flythrough_camera, render_kwargs, resolve_knobs
     from .models.gaussians import inria_cloud, random_cloud
     from .ops import gs
-
-    W, H, n = 1920, 1080, 1_000_000
-    dev = torch.device("cuda")
-    knobs = resolve_knobs(args.scene, n, env={})
+    knobs = resolve_knobs(scene, n, env={})
     kw_meas = render_kwargs(knobs, exact=False, interpret=False)
     kw_exact = render_kwargs(knobs, exact=True, interpret=False)
     mpt, tile_w = knobs["max_splats_per_tile"], knobs["tile_w"]
     ntx, nty = gs.num_tiles(W, H, tile_w)
-    if args.scene == "inria":
+    if scene == "inria":
         cloud = inria_cloud(n, seed=1, device=dev)
     else:
         cloud = random_cloud(n, seed=1, extent=1.0,
@@ -84,22 +120,12 @@ def main(argv=None) -> int:
                                           st["tile_kept"], st["tile_count"],
                                           dry_floor=knobs["dry_floor"])
 
-    modes = {
-        f"{args.scene} LOD": lambda: gs.render_gaussians(
+    return {
+        f"{scene} LOD": lambda: gs.render_gaussians(
             cloud, view, proj, W, H, lod_budget=budget, **kw_meas),
         "exact": lambda: gs.render_gaussians(cloud, view, proj, W, H,
                                              **kw_exact),
     }
-    for name, frame in modes.items():
-        ms, rows = _profile(torch, frame, args.frames)
-        busy = sum(r[0] for r in rows)
-        launches = sum(r[1] for r in rows)
-        print(f"== {name}: {ms:.3f} ms/frame (CUDA events), device busy "
-              f"{busy:.3f} ms/frame ({100 * busy / ms:.1f}%), "
-              f"{launches:.0f} kernel launches/frame")
-        for dev_ms, count, key in rows[:args.top]:
-            print(f"  {dev_ms:9.4f} ms/frame  {count:6.1f}/frame  {key[:90]}")
-    return 0
 
 
 if __name__ == "__main__":

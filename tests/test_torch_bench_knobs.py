@@ -54,6 +54,10 @@ def test_import_loads_neither_jax_nor_reference():
             "import ray_eater_tpu_torch.bench_knobs\n"
             "import ray_eater_tpu_torch.models.gaussians\n"
             "import ray_eater_tpu_torch.ops.gs, ray_eater_tpu_torch.ops._cuda\n"
+            "import ray_eater_tpu_torch.models.gs_training\n"
+            "import ray_eater_tpu_torch.models.gs_densify\n"
+            "import ray_eater_tpu_torch.gs_trainer, "
+            "ray_eater_tpu_torch.profile_gs\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'ray_eater_tpu', 'bench')]\n"
             "assert not bad, bad\n")

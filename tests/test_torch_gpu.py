@@ -1,4 +1,5 @@
-"""K1, K2 and K3 on a CUDA device against their plain PyTorch versions.
+"""K1–K5 on a CUDA device against their plain PyTorch versions, and one
+training step through K4 and K5.
 
 Marked ``gpu``: each test decides inside itself whether a CUDA device is
 present and skips when there is none. Run on a GPU machine with
@@ -6,9 +7,11 @@ present and skips when there is none. Run on a GPU machine with
 suite's conftest imports JAX, which this file does not need).
 
 Tolerances: K1 floats within rtol 1e-5 and integers equal on all but
-1e-4 of the splats (off by at most 1); K2 and K3 planes within 2e-3 max
-abs and 1e-5 mean abs (running product vs cumprod), exec equal on ≥ 99.9%
-of tiles.
+1e-4 of the splats (off by at most 1); K2, K3 and K4 planes (and K4's
+checkpoints) within 2e-3 max abs and 1e-5 mean abs (running product vs
+cumprod), exec equal on ≥ 99.9% of tiles; K5 within 1e-4 × the plain
+version's largest |gradient| (reassociated sums, shared-memory atomics in
+no fixed order).
 """
 
 import numpy as np
@@ -79,7 +82,8 @@ def test_render_is_finite_and_counts_launches(scene):
     assert img.shape == (H, W, 3) and img.is_cuda
     assert bool(torch.isfinite(img).all())
     assert _cuda.launches == {"k1_project": 1, "k2_composite": 1,
-                              "k3_composite_tail": 0}
+                              "k3_composite_tail": 0,
+                              "k4_composite_ckpt": 0, "k5_composite_bwd": 0}
     assert np.isfinite(img.cpu().numpy()).all()
 
 
@@ -138,4 +142,64 @@ def test_inria_render_counts_launches(inria, exact):
     img = out if exact else out[0]
     assert img.shape == (H, W, 3) and bool(torch.isfinite(img).all())
     assert _cuda.launches == {"k1_project": 1, "k2_composite": 1,
-                              "k3_composite_tail": 0 if exact else 1}
+                              "k3_composite_tail": 0 if exact else 1,
+                              "k4_composite_ckpt": 0, "k5_composite_bwd": 0}
+
+
+def _train_args(scene, tile_w):
+    """K4's arguments on the scene's LOD layout (mpt 256)."""
+    cloud, view, proj = scene
+    lay = gs._frame_layout(cloud, view, proj, W, H, tile_w=tile_w,
+                           max_splats_per_tile=256)
+    b = lay.binned
+    return lay.records, b.row_begin, b.row_end, lay.ntx, lay.nty, tile_w
+
+
+@pytest.mark.parametrize("tile_w", [32, 128])
+def test_k4_matches_plain(scene, tile_w):
+    args = _train_args(scene, tile_w)
+    pk, ek, ck, off = gs._composite_call_ckpt(*args)
+    pp, ep, cp, offp = gs._composite_ckpt_plain(*args)
+    err = (pk - pp).abs()
+    assert float(err.max()) <= 2e-3 and float(err.mean()) <= 1e-5
+    assert float((ek == ep).float().mean()) >= 0.999
+    assert torch.equal(off, offp)
+    # the checkpoint rows of chunks both versions ran
+    begin, _, first, _ = gs._chunk_spans(args[1], args[2], args[0].shape[0])
+    nex = torch.minimum(gs._executed_chunks(begin, first, ek),
+                        gs._executed_chunks(begin, first, ep))
+    rows = torch.cat([off[t].long() + torch.arange(int(nex[t]),
+                                                   device=off.device)
+                      for t in torch.nonzero(nex).flatten().tolist()])
+    assert rows.numel() > 0
+    assert float((ck[rows] - cp[rows]).abs().max()) <= 2e-3
+
+
+@pytest.mark.parametrize("tile_w", [32, 128])
+def test_k5_matches_plain(scene, tile_w):
+    args = _train_args(scene, tile_w)
+    planes, ex, ck, off = gs._composite_call_ckpt(*args)
+    gen = torch.Generator(device=planes.device).manual_seed(0)
+    d = torch.randn(planes.shape, generator=gen, device=planes.device)
+    bwd = (args[0], args[1], args[2], ex, off, ck, planes, d, *args[3:])
+    gk = gs._composite_bwd_call(*bwd)
+    gp = gs._composite_bwd_plain(*bwd)
+    scale = float(gp.abs().max())
+    assert scale > 0 and bool(torch.isfinite(gk).all())
+    assert float((gk - gp).abs().max()) <= 1e-4 * scale
+
+
+def test_train_step_is_finite_and_counts_launches(scene):
+    from ray_eater_tpu_torch.models import gs_training as tr
+    from ray_eater_tpu_torch.ops import _cuda
+    cloud, view, proj = scene
+    params = tr.params_from_cloud(cloud)
+    target = torch.full((H, W, 3), 0.2, device=cloud.means.device)
+    step = tr.make_train_step_pallas(tr.adam(params, 5e-3), view, proj)
+    _cuda.reset_launches()
+    loss = step(params, target)
+    assert bool(torch.isfinite(loss)) and float(loss) > 0
+    assert _cuda.launches["k4_composite_ckpt"] == 1
+    assert _cuda.launches["k5_composite_bwd"] == 1
+    for t in params.tensors():
+        assert bool(torch.isfinite(t).all())
