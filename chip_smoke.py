@@ -17,7 +17,16 @@ kernel against its plain PyTorch version, and drives the port's main paths:
   1920x1080, one warm-up and 20 timed steps, the loss must fall): K4, K5;
 * adaptive density control: ``gs_trainer.train_adc`` (960x540, a
   16,384-splat hidden scene, capacity 65,536, 8 views, 300 steps with one
-  densify event; the live count must grow): K4, K5.
+  densify event; the live count must grow): K4, K5;
+* triangle raster and texture sampling: ``python -m
+  ray_eater_tpu_torch.basic_planes`` (900x600, 60 frames): K6;
+  ``python -m ray_eater_tpu_torch.multipass`` (1920x1080, depth prepass +
+  LESS_EQUAL lit pass, 60 frames): K6 twice a frame; and the
+  10,082-triangle measurement grid of ``tools/profile_raster.py`` at
+  1920x1080 through ``render_mesh`` with a trilinear anisotropic sampler
+  (60 frames; the subtile sampler's frame gated at >= 30 dB PSNR against
+  the per-pixel gather sampler): K7, K8, K9. The last frames of
+  basic_planes, multipass and the grid are written to ``chiprun_out/raster/``.
 
 Launch counts are zeroed just before each main path and read just after
 it; the ``launches`` of the kernels record are their sum over the paths.
@@ -81,6 +90,22 @@ K2_OPS_PER_PAIR_PIXEL = 13   # ~12 flops + one expf per executed pair-pixel
 K5_OPS_ALPHA, K5_OPS_LIVE, K5_OPS_UNCLAMPED = 15, 17, 30
 REC_BYTES = 9 * 4        # used record columns read per executed row
 GRAD_BYTES = 12 * 4      # K5's gradient row written per executed row
+
+# raster and sampling (K6-K9)
+RASTER_FRAMES = 60
+RASTER_OUT = "chiprun_out/raster"
+# K6/K7 vs plain: winner ids equal, λ0/λ1/depth where they agree, and K9:
+# the same float32 operations in the same order (--fmad=false)
+RASTER_TOL = 1e-6
+SUBTILE_MIN_PSNR = 30.0  # subtile sampler frame vs per-pixel gather frame
+# CUDA render vs CPU render of the small grid frame: the same operations,
+# but CUDA's and the CPU's pow/log2/sqrt may differ by an ulp, which can
+# move a knife-edge pixel's winner or a subtile's LOD fraction
+SMALL_RASTER_COLOR = 2e-5
+SMALL_RASTER_SHARE = 1e-3
+FOLD_OPS = 14            # f32 operations per executed (row, pixel) pair
+SETUP_ROW_BYTES = 16 * 4  # one setup/pack row
+SUBTILE_PIXEL_BYTES = 52  # K9: 9 coordinate planes read, 4 channels written
 
 
 def log(*a):
@@ -597,6 +622,277 @@ def adc_path(torch, cuda, gs_trainer):
     return launches, r
 
 
+# ---- raster and sampling: K6-K9 ---------------------------------------------
+
+def pad_rows(torch, depth):
+    """The fold's incoming depth, rows padded with inf to a multiple of 32
+    (as ``raster._raster_call`` pads them)."""
+    hp = -(-depth.shape[0] // 32) * 32
+    pad = torch.full((hp - depth.shape[0], depth.shape[1]), float("inf"),
+                     device=depth.device)
+    return torch.cat([depth, pad]).contiguous()
+
+
+def fold_compare(torch, k, p, mask, label):
+    """K6/K7 outputs against their plain version on ``mask``: winner ids
+    (and K7's slots) equal, floats within RASTER_TOL where ids agree.
+    Returns the largest float difference."""
+    require(bool(torch.equal(k[1][mask], p[1][mask])),
+            f"{label}: winner ids differ on "
+            f"{int((k[1] != p[1])[mask].sum())} pixels")
+    if len(k) > 4:
+        require(bool(torch.equal(k[4][mask], p[4][mask])),
+                f"{label}: winner slots differ")
+    err = 0.0
+    for a, b in (k[0], p[0]), (k[2], p[2]), (k[3], p[3]):
+        fin = torch.isfinite(b) & mask
+        require(bool(torch.equal(torch.isfinite(a)[mask], fin[mask])),
+                f"{label}: infinite keys differ")
+        if bool(fin.any()):
+            err = max(err, float((a - b)[fin].abs().max()))
+    require(err <= RASTER_TOL, f"{label}: planes differ by {err}")
+    return err
+
+
+def raster_record(torch, name, source, replaces, call, plain, args,
+                  max_abs, nbytes, ops, label, reps, plain_reps=2,
+                  library=None):
+    d = kernel_record(torch, name, source, replaces, call, plain, args,
+                      max_abs, nbytes, ops, label, reps, plain_reps)
+    if library is not None:
+        d["library_ms"] = time_ms(torch, library, reps)
+        log(f"{name} [{label}] library call {d['library_ms']:.4f} ms")
+    return d
+
+
+def check_k6(torch, raster, ds, depth, w, h, mode, label, reps):
+    """K6 vs its plain version on one draw: every valid setup column
+    folded into every tile. Returns (outputs, record)."""
+    dinit = pad_rows(torch, depth)
+    n = raster._fold_bound(ds.inv_w.shape[0], ds.setup.shape[1])
+    args = (ds.setup, dinit, n, float(w), float(h), mode)
+    k = raster._raster_dense_k6(*args)
+    p = raster._raster_dense_plain(*args)
+    torch.cuda.synchronize()
+    err = fold_compare(torch, k, p, torch.ones_like(k[1], dtype=torch.bool),
+                       f"K6 [{label}]")
+    valid = int((ds.setup[raster._VALID, :n] > 0.5).sum())
+    hp, wp = dinit.shape
+    log(f"K6 vs plain [{label}]: {valid} valid of {n} columns over "
+        f"{hp}x{wp} px, {int((k[1] >= 0).sum())} px won; max abs {err:.3e}")
+    return k, raster_record(
+        torch, "K6 raster", "ray_eater_tpu_torch/csrc/raster.cu",
+        "ray_eater_tpu/ops/raster.py:250", raster._raster_dense_k6,
+        raster._raster_dense_plain, args, err,
+        n * SETUP_ROW_BYTES + hp * wp * 5 * 4,
+        valid * hp * wp * FOLD_OPS, label, reps)
+
+
+def draw_setup(sc, t, pass_=-1):
+    """The cleared framebuffer and the draw setup of pass ``pass_`` of a
+    ``raster_scenes`` scene's frame at time ``t``."""
+    from ray_eater_tpu_torch.core.resources import create_framebuffer
+    from ray_eater_tpu_torch.ops import raster
+    fb = create_framebuffer(sc.width, sc.height, device=sc.device)
+    return fb, raster._vertex_stage(sc.passes[pass_][0], sc.mesh,
+                                    sc.uniforms(t), fb)
+
+
+def check_grid_kernels(torch, raster, sampling, sc, t, reps):
+    """K7 and K8 vs their plain versions, K7 vs K6 (binned vs dense) and
+    K9 vs its plain version on one frame of the grid10k scene ``sc``;
+    prints the frame's binning and fallback numbers. Returns the K7, K8,
+    K9 records."""
+    m, (pipe, res), w, h = sc.mesh, sc.passes[0], sc.width, sc.height
+    fb, ds = draw_setup(sc, t)
+    dinit = pad_rows(torch, fb.depth)
+    hp, wp = dinit.shape
+    ntx, nty = wp // raster.TILE_W, hp // raster.TILE_H
+    ft = raster._feature_table(ds.tri_vary, ds.inv_w)
+    b = raster._bin_triangles(ds.setup, ntx, nty, feat=ft)
+    rows = int((b.row_end - b.row_begin).sum())
+    log(f"grid10k frame t={t}: {m.num_triangles} triangles, "
+        f"{ds.inv_w.shape[0]} clipped slots, "
+        f"{int((ds.setup[raster._VALID] > 0.5).sum())} valid, "
+        f"{ntx * nty} tiles ({int(b.visited.sum())} visited), {rows} pairs "
+        f"in a pack of {b.pack.shape[0]} rows, longest tile "
+        f"{int((b.row_end - b.row_begin).max())}, overflow_big "
+        f"{int(b.overflow_big)}")
+    less = raster._mode_bits(True, False, False, False)
+    args = (b.pack, b.row_begin, b.row_end, dinit, float(w), float(h), less)
+    k = raster._raster_binned_k7(*args)
+    p = raster._raster_binned_plain(*args)
+    torch.cuda.synchronize()
+    vis = raster._tile_mask(b.visited, ntx, nty)
+    err7 = fold_compare(torch, k, p, vis, "K7 grid10k")
+    k6 = raster._raster_dense_k6(ds.setup, dinit, ds.setup.shape[1],
+                                 float(w), float(h), less)
+    ids7 = torch.where(vis, k[1], -1)
+    same = bool(torch.equal(ids7, k6[1]))
+    log(f"K7 vs K6 (binned vs dense, all {ds.setup.shape[1]} columns) on "
+        f"the grid10k frame: winner ids equal {same}; K7 vs plain max abs "
+        f"{err7:.3e} on {int(vis.sum())} visited px")
+    require(same, "K7 and K6 winner ids differ on the grid10k frame")
+    r7 = raster_record(
+        torch, "K7 raster binned", "ray_eater_tpu_torch/csrc/raster.cu",
+        "ray_eater_tpu/ops/raster.py:434", raster._raster_binned_k7,
+        raster._raster_binned_plain, args, err7,
+        rows * SETUP_ROW_BYTES + ntx * nty * 8 + hp * wp * 6 * 4,
+        rows * raster.TILE_H * raster.TILE_W * FOLD_OPS, "grid10k frame",
+        reps)
+
+    slot = k[4]
+    fk = raster._shade_fetch_k8(b.fpack, slot, b.visited)
+    fp = raster._shade_fetch_plain(b.fpack, slot, b.visited)
+    torch.cuda.synchronize()
+    require(bool(torch.equal(fk, fp)), "K8 differs from its plain version")
+    nfeat = b.fpack.shape[1]
+    # the library call gathers the same rows (slot 0 where K8 writes zeros)
+    slot_flat = torch.where(vis & (slot >= 0), slot, 0).reshape(-1).long()
+    live = int(torch.unique(slot[vis & (slot >= 0)]).numel())
+    log(f"K8 vs plain [grid10k frame]: ({hp}, {wp}, {nfeat}) equal; "
+        f"{live} live pack rows of {b.fpack.shape[0]}")
+    r8 = raster_record(
+        torch, "K8 shade fetch", "ray_eater_tpu_torch/csrc/raster.cu",
+        "ray_eater_tpu/ops/raster.py:511", raster._shade_fetch_k8,
+        raster._shade_fetch_plain, (b.fpack, slot, b.visited), 0.0,
+        # live pack rows read once, the slot plane read, the plane written
+        (live + hp * wp) * nfeat * 4 + hp * wp * 4 + ntx * nty, 0,
+        "grid10k frame", reps,
+        library=lambda: b.fpack.index_select(0, slot_flat))
+
+    tex = res["tex"]
+    (_, gt, g0, g1, feats), zt = raster._raster_draw(pipe, ds, fb)
+    pv = raster._interpolate(gt, g0, g1, ds.tri_vary, ds.inv_w, zt, feats)
+    plan = sampling._subtile_plan(tex, pv.vary["uv"], pv.mask)
+    ns = plan.cus.shape[0]
+    nb = sampling._fallback_budget(ns, tex.sampler.subtile_fallback)
+    _, bind = sampling._binding(plan)
+    log(f"grid10k subtile sampler: {ns} subtiles, binding "
+        f"{int(bind.sum())} against the fallback budget of {nb}; levels "
+        f"{torch.bincount(plan.lsub.long()).tolist()}")
+    args9 = (plan.w0i, plan.w1i, *plan.planes, tex.win_table)
+    k9 = sampling._subtile_call(*args9)
+    p9 = sampling._subtile_plain(*args9)
+    torch.cuda.synchronize()
+    err9 = float((k9 - p9).abs().max())
+    log(f"K9 vs plain [grid10k frame]: max abs {err9:.3e}")
+    require(err9 <= RASTER_TOL, f"K9 differs by {err9}")
+    r9 = raster_record(
+        torch, "K9 subtile sampler", "ray_eater_tpu_torch/csrc/sampling.cu",
+        "ray_eater_tpu/ops/sampling.py:190", sampling._subtile_call,
+        sampling._subtile_plain, args9, err9,
+        ns * sampling._SPIX * SUBTILE_PIXEL_BYTES, 0, "grid10k frame", reps)
+    return r7, r8, r9
+
+
+def check_raster_small(torch, rs, devs=("cuda", "cpu")):
+    """The small grid (288 triangles, binned, mip-sampled) through
+    render_mesh on CUDA and on the CPU (plain versions)."""
+    from ray_eater_tpu_torch.ops import raster
+    w, h = rs.EXTENTS["grid288"]
+    out = []
+    for dev in devs:
+        sc = rs.scene("grid288", dev)
+        f = sc.frame(0.4)
+        fb, ds = draw_setup(sc, 0.4)
+        (_, tid, _, _, _), _ = raster._raster_draw(sc.passes[0][0], ds, fb)
+        out.append((f.color[:h, :w].cpu(), tid[:h, :w].cpu()))
+    (cg, ig), (cc, ic) = out
+    diff = (cg - cc).abs().amax(-1)
+    off = float((diff > SMALL_RASTER_COLOR).float().mean())
+    ids = float((ig != ic).float().mean())
+    log(f"small raster frame {w}x{h} (288-triangle grid, mip sampler): "
+        f"CUDA vs CPU max abs {float(diff.max()):.3e}, share of pixels off "
+        f"by more than {SMALL_RASTER_COLOR:g}: {off:.2e}, winner ids differ "
+        f"on {ids:.2e} of pixels, covered {float((ig >= 0).float().mean()):.3f}")
+    require(bool(torch.isfinite(cg).all()), "small raster frame not finite")
+    require(off <= SMALL_RASTER_SHARE and ids <= SMALL_RASTER_SHARE,
+            f"small raster frame: {off} off, {ids} ids differ")
+
+
+def raster_paths(torch, cuda, dev):
+    """The raster main paths (basic_planes, multipass, grid10k), each with
+    its launches counted from zero; the subtile-vs-gather PSNR gate.
+    Returns the launch counts of each path."""
+    import dataclasses
+    import os
+    from ray_eater_tpu_torch import basic_planes, multipass
+    from ray_eater_tpu_torch import raster_scenes as rs
+    from ray_eater_tpu_torch.io.image import save_png, to_srgb_u8
+    os.makedirs(RASTER_OUT, exist_ok=True)
+    paths = {}
+    frames = str(RASTER_FRAMES)
+
+    cuda.reset_launches()
+    a = basic_planes.parse_args(
+        ["--frames", frames, "--out", f"{RASTER_OUT}/basic_planes"])
+    r = basic_planes.run(a)
+    torch.cuda.synchronize()
+    paths["basic_planes"] = dict(cuda.launches)
+    log(f"basic_planes {a.width}x{a.height}: {RASTER_FRAMES} frames, "
+        f"{r['ms_per_frame']:.3f} ms/frame (CUDA events); launches "
+        f"{paths['basic_planes']}; PNG {r['png']}")
+    require(bool(torch.isfinite(r["fb"].color).all()), "basic_planes frame")
+
+    cuda.reset_launches()
+    a = multipass.parse_args(
+        ["--frames", frames, "--out", f"{RASTER_OUT}/multipass"])
+    r = multipass.run(a)
+    torch.cuda.synchronize()
+    paths["multipass"] = dict(cuda.launches)
+    log(f"multipass {a.width}x{a.height} ({r['triangles']} tris x 2 passes): "
+        f"{RASTER_FRAMES} frames, {r['ms_per_frame']:.3f} ms/frame (CUDA "
+        f"events); launches {paths['multipass']}; PNG {r['png']}")
+    require(bool(torch.isfinite(r["fb"].color).all()), "multipass frame")
+
+    sc = rs.scene("grid10k", dev)
+    m, (pipe, res), w, h = sc.mesh, sc.passes[0], sc.width, sc.height
+    finite = torch.ones((), dtype=torch.bool, device=dev)
+
+    def frame(t, scene=sc):
+        nonlocal finite
+        fb = scene.frame(t)
+        finite = finite & torch.isfinite(fb.color).all()
+        return fb
+
+    cuda.reset_launches()
+    ms, fb = rs.frame_loop(frame, RASTER_FRAMES, dev)
+    torch.cuda.synchronize()
+    paths["grid10k"] = dict(cuda.launches)
+    per = {k: v / (RASTER_FRAMES + 1) for k, v in paths["grid10k"].items()
+           if v}
+    save_png(f"{RASTER_OUT}/grid10k_frame_last.png",
+             to_srgb_u8(fb.color[:h, :w]))
+    log(f"grid10k {w}x{h} ({m.num_triangles} triangles, mip + 4x aniso): "
+        f"{RASTER_FRAMES} frames, {ms:.3f} ms/frame (CUDA events); launches "
+        f"{paths['grid10k']} ({per} a frame); PNG "
+        f"{RASTER_OUT}/grid10k_frame_last.png")
+    require(bool(finite), "non-finite pixels in the grid10k window")
+
+    tex = res["tex"]
+    tex = dataclasses.replace(
+        tex, sampler=dataclasses.replace(tex.sampler, subtile=False))
+    gather = dataclasses.replace(sc, passes=[(pipe, {"tex": tex})])
+    psnrs = []
+    for t in (0.0, 0.5, 59 / 60):
+        a = frame(t).color[:h, :w, :3]
+        b = frame(t, gather).color[:h, :w, :3]
+        mse = float(torch.mean((a - b) ** 2))
+        psnrs.append(10 * np.log10(1.0 / max(mse, 1e-12)))
+    log("grid10k subtile sampler vs per-pixel gather: "
+        + " ".join(f"{p:.2f}" for p in psnrs) + " dB at t = 0, 0.5, 59/60")
+    require(min(psnrs) >= SUBTILE_MIN_PSNR,
+            f"subtile vs gather PSNR {min(psnrs)} < {SUBTILE_MIN_PSNR}")
+    for name, key in (("basic_planes", "k6_raster"),
+                      ("multipass", "k6_raster"),
+                      ("grid10k", "k7_raster_binned"),
+                      ("grid10k", "k8_shade_fetch"),
+                      ("grid10k", "k9_subtile")):
+        require(paths[name][key] > 0, f"{key} was not launched on {name}")
+    return paths
+
+
 def run() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -742,17 +1038,49 @@ def run() -> int:
     torch.cuda.empty_cache()
     adc_launches, _ = adc_path(torch, cuda, gs_trainer)
 
-    paths = (fog_launches, inria_launches, train_launches, adc_launches)
+    torch.cuda.empty_cache()
+
+    # ---- raster and sampling: K6, K7, K8, K9 -------------------------------
+    from ray_eater_tpu_torch import raster_scenes as rs
+    from ray_eater_tpu_torch.ops import raster, sampling
+    less = raster._mode_bits(True, False, False, False)
+    sc = rs.scene("basic_planes", dev)
+    fb, ds = draw_setup(sc, 0.5)
+    check_k6(torch, raster, ds, fb.depth, sc.width, sc.height, less,
+             "basic_planes frame t=0.5", reps=5)
+    sc = rs.scene("multipass", dev)
+    fb, ds = draw_setup(sc, 0.5)      # both passes share the vertex stage
+    pre, _ = check_k6(torch, raster, ds, fb.depth, sc.width, sc.height, less,
+                      "multipass prepass t=0.5", reps=20)
+    _, k6 = check_k6(torch, raster, ds, pre[0][:sc.height], sc.width,
+                     sc.height, raster._mode_bits(True, False, True, False),
+                     "multipass lit pass t=0.5", reps=20)
+    k7, k8, k9 = check_grid_kernels(torch, raster, sampling,
+                                    rs.scene("grid10k", dev), 0.5, reps=20)
+    torch.cuda.empty_cache()
+    check_raster_small(torch, rs)
+    raster_launches = raster_paths(torch, cuda, dev)
+
+    paths = (fog_launches, inria_launches, train_launches, adc_launches,
+             *raster_launches.values())
     for d, key in ((k1, "k1_project"), (k2, "k2_composite"),
                    (k3, "k3_composite_tail"), (k4, "k4_composite_ckpt"),
-                   (k5, "k5_composite_bwd")):
+                   (k5, "k5_composite_bwd"), (k6, "k6_raster"),
+                   (k7, "k7_raster_binned"), (k8, "k8_shade_fetch"),
+                   (k9, "k9_subtile")):
         d["launches"] = sum(p[key] for p in paths)
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
+    k10 = dict(name="K10 splat mask", route=None, source=None,
+               replaces="ray_eater_tpu/ops/splat.py:42", launches=0,
+               max_abs_err=None, ms=None, plain_ms=None, bound_ms=None,
+               bound_by=None, library_ms=None)
     log(f"card: {card}")
     print(json.dumps({"kernels": [{k: d[k] for k in keys}
-                                  for d in (k1, k2, k3, k4, k5)]}))
+                                  for d in (k1, k2, k3, k4, k5, k6, k7, k8,
+                                            k9)]
+                      + [dict(k10, status="not ported")]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,14 +1,18 @@
 """PyTorch/CUDA port of ``ray_eater_tpu`` for NVIDIA Hopper (H100).
 
 The JAX package stays the reference; this package reproduces its 3D
-Gaussian Splatting render path (``ops.gs.render_gaussians``) and its
+Gaussian Splatting render path (``ops.gs.render_gaussians``), its
 single-device training path (``ops.gs.render_gaussians_diff``,
 ``models.gs_training``, the adaptive density control of
-``models.gs_densify``, the ``gs_trainer`` entry point) with plain PyTorch
-for the tensor glue and five kernels written by hand in CUDA C++
-(``csrc/``): K1, the EWA projection; K2, the tile composite; K3, the
-composite of the decimated tail; K4, K2 plus the entry-T checkpoints that
-training saves; and K5, the composite's backward.
+``models.gs_densify``, the ``gs_trainer`` entry point) and its triangle
+raster and texture sampling path (``ops.raster.render_mesh``,
+``ops.sampling``, the ``basic_planes`` and ``multipass`` entry points)
+with plain PyTorch for the tensor glue and nine kernels written by hand in
+CUDA C++ (``csrc/``): K1, the EWA projection; K2, the tile composite; K3,
+the composite of the decimated tail; K4, K2 plus the entry-T checkpoints
+that training saves; K5, the composite's backward; K6 and K7, the dense
+and binned raster folds; K8, the winner-feature fetch; and K9, the
+subtile sampler's window taps.
 
 Nothing here imports JAX or ``ray_eater_tpu``. Entry points run on
 ``"cuda"`` unless the caller passes CPU tensors or ``device="cpu"``; on the

@@ -12,7 +12,7 @@ Flags: ``sm_90a`` (Hopper). No ``--use_fast_math``: the kernels keep IEEE
 ``sqrtf``/``logf``/``expf`` and division so their integer radii match the
 plain PyTorch versions. ``--fmad=false`` keeps every multiply and add
 rounded separately, as PyTorch's one-op-at-a-time plain versions round
-them.
+them (the raster planes' coverage tests at λ = 0 depend on it).
 """
 
 from __future__ import annotations
@@ -26,7 +26,8 @@ from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent.parent
 _SOURCES = tuple(_PKG / "csrc" / f for f in (
-    "gs_project.cu", "gs_composite.cu", "gs_composite_bwd.cu"))
+    "gs_project.cu", "gs_composite.cu", "gs_composite_bwd.cu", "raster.cu",
+    "sampling.cu"))
 _BUILD = _PKG / "_build"
 _ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 _FLAGS = (*_ARCH, "-std=c++17", "-O3", "--fmad=false", "-Xcompiler", "-fPIC")
@@ -35,7 +36,8 @@ _lib = None
 
 #: kernel launches per wrapper, counted where the wrapper launches
 launches = {"k1_project": 0, "k2_composite": 0, "k3_composite_tail": 0,
-            "k4_composite_ckpt": 0, "k5_composite_bwd": 0}
+            "k4_composite_ckpt": 0, "k5_composite_bwd": 0, "k6_raster": 0,
+            "k7_raster_binned": 0, "k8_shade_fetch": 0, "k9_subtile": 0}
 
 
 def reset_launches() -> None:
@@ -71,7 +73,7 @@ def build() -> Path:
     h = hashlib.sha256(" ".join(_FLAGS).encode())
     for src in _SOURCES:
         h.update(src.read_bytes())
-    out = _BUILD / f"libgs_kernels_{h.hexdigest()[:16]}.so"
+    out = _BUILD / f"libport_kernels_{h.hexdigest()[:16]}.so"
     if out.exists():
         return out
     _BUILD.mkdir(parents=True, exist_ok=True)
@@ -111,8 +113,32 @@ def lib() -> ctypes.CDLL:
         so.gs_composite_bwd.argtypes = [p, i, p, p, p, p, p, p, p, p, i, i, i,
                                         p]
         so.gs_composite_bwd.restype = i
+        f = ctypes.c_float
+        so.raster_dense.argtypes = [p, i, i, p, i, i, f, f, i, p, p, p, p, p]
+        so.raster_dense.restype = i
+        so.raster_binned.argtypes = [p, p, p, i, i, p, i, i, f, f, i, p, p, p,
+                                     p, p, p]
+        so.raster_binned.restype = i
+        so.shade_fetch.argtypes = [p, p, p, i, i, i, i, p, p]
+        so.shade_fetch.restype = i
+        so.subtile_sample.argtypes = [p] * 13 + [i, p]
+        so.subtile_sample.restype = i
         _lib = so
     return _lib
+
+
+def check_arg(t, name: str, dtype, shape, device) -> None:
+    """Raise unless ``t`` is a contiguous tensor of ``dtype`` and ``shape``
+    on ``device`` (what a kernel takes)."""
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name} has dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, "
+                         f"expected {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} is not contiguous")
 
 
 def check(err: int, name: str) -> None:

@@ -267,18 +267,6 @@ def _project_plain(means, scales, quats, opacities, scal) -> torch.Tensor:
                                      *cov, opacities, scal))
 
 
-def _check_arg(t: torch.Tensor, name: str, dtype, shape, device) -> None:
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.dtype != dtype:
-        raise ValueError(f"{name} has dtype {t.dtype}, expected {dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name} has shape {tuple(t.shape)}, "
-                         f"expected {tuple(shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} is not contiguous")
-
-
 def _project_k1(means, scales, quats, opacities, scal) -> torch.Tensor:
     """K1 wrapper: (9, N) f32 projection planes. CPU tensors take the plain
     version; CUDA tensors launch the kernel (or raise)."""
@@ -288,11 +276,11 @@ def _project_k1(means, scales, quats, opacities, scal) -> torch.Tensor:
     if dev.type != "cuda":
         raise ValueError(f"K1 projection: unsupported device {dev}")
     n = means.shape[0]
-    _check_arg(means, "means", _F32, (n, 3), dev)
-    _check_arg(scales, "scales", _F32, (n, 3), dev)
-    _check_arg(quats, "quats", _F32, (n, 4), dev)
-    _check_arg(opacities, "opacities", _F32, (n,), dev)
-    _check_arg(scal, "scal", _F32, (24,), dev)
+    _cuda.check_arg(means, "means", _F32, (n, 3), dev)
+    _cuda.check_arg(scales, "scales", _F32, (n, 3), dev)
+    _cuda.check_arg(quats, "quats", _F32, (n, 4), dev)
+    _cuda.check_arg(opacities, "opacities", _F32, (n,), dev)
+    _cuda.check_arg(scal, "scal", _F32, (24,), dev)
     out = torch.empty((9, n), dtype=_F32, device=dev)
     with torch.cuda.device(dev):
         err = _cuda.lib().gs_project(
@@ -858,9 +846,9 @@ def _composite_args(name, records, row_begin, row_end, ntiles, tile_w, dev):
         raise ValueError(f"{name}: unsupported device {dev}")
     if tile_w not in (32, 64, 128):
         raise ValueError(f"{name}: tile_w {tile_w} not in 32/64/128")
-    _check_arg(records, "records", _F32, (records.shape[0], _ROWS), dev)
-    _check_arg(row_begin, "row_begin", _I32, (ntiles,), dev)
-    _check_arg(row_end, "row_end", _I32, (ntiles,), dev)
+    _cuda.check_arg(records, "records", _F32, (records.shape[0], _ROWS), dev)
+    _cuda.check_arg(row_begin, "row_begin", _I32, (ntiles,), dev)
+    _cuda.check_arg(row_end, "row_end", _I32, (ntiles,), dev)
 
 
 def _composite_call(records, row_begin, row_end, ntx: int, nty: int,
@@ -904,7 +892,7 @@ def _composite_tail_call(records, row_begin, row_end, t_entry, ntx: int,
     if decim not in (1, 2, 4):
         raise ValueError(f"K3 tail composite: decim {decim} not in 1/2/4")
     pixd = (TILE_H // decim) * (tile_w // decim)
-    _check_arg(t_entry, "t_entry", _F32, (ntiles, pixd), dev)
+    _cuda.check_arg(t_entry, "t_entry", _F32, (ntiles, pixd), dev)
     planes = torch.empty((4, ntiles, pixd), dtype=_F32, device=dev)
     exec_ = torch.empty(ntiles, dtype=_I32, device=dev)
     with torch.cuda.device(dev):
@@ -1080,11 +1068,11 @@ def _composite_bwd_call(records, row_begin, row_end, exec_, ck_off, ckpt,
     pix = TILE_H * tile_w
     _composite_args("K5 composite bwd", records, row_begin, row_end, ntiles,
                     tile_w, dev)
-    _check_arg(exec_, "exec", _I32, (ntiles,), dev)
-    _check_arg(ck_off, "ck_off", _I32, (ntiles,), dev)
-    _check_arg(ckpt, "ckpt", _F32, (ckpt.shape[0], pix), dev)
-    _check_arg(planes, "planes", _F32, (4, ntiles, pix), dev)
-    _check_arg(dplanes, "dplanes", _F32, (4, ntiles, pix), dev)
+    _cuda.check_arg(exec_, "exec", _I32, (ntiles,), dev)
+    _cuda.check_arg(ck_off, "ck_off", _I32, (ntiles,), dev)
+    _cuda.check_arg(ckpt, "ckpt", _F32, (ckpt.shape[0], pix), dev)
+    _cuda.check_arg(planes, "planes", _F32, (4, ntiles, pix), dev)
+    _cuda.check_arg(dplanes, "dplanes", _F32, (4, ntiles, pix), dev)
     grad = torch.zeros((records.shape[0], _ROWS), dtype=_F32, device=dev)
     with torch.cuda.device(dev):
         err = _cuda.lib().gs_composite_bwd(

@@ -1,8 +1,8 @@
-"""Where the time of one flythrough frame, or one training step, goes on a
-CUDA device.
+"""Where the time of one flythrough frame, one training step, or one
+raster frame goes on a CUDA device.
 
-    python3 -m ray_eater_tpu_torch.profile_gs [--scene fog|inria|train]
-        [--frames 5]
+    python3 -m ray_eater_tpu_torch.profile_gs [--scene fog|inria|train|
+        basic_planes|multipass|grid10k] [--frames 5]
 
 ``fog``/``inria`` render a bench scene (1M splats, 1920x1080, the scene's
 knobs) through the port's ``render_gaussians``: a few warm LOD frames (with
@@ -10,7 +10,12 @@ temporal budgets where the scene uses them), then ``--frames`` LOD frames
 and as many exact frames under ``torch.profiler``. ``train`` profiles
 ``--frames`` steps of ``make_train_step_pallas`` in the trainer's plain
 configuration (1M splats at 1920x1080, mpt 256, tile_w 128, Adam lr 5e-3;
-``gs_trainer``) after one warm-up step. Prints, per mode, the CUDA-event
+``gs_trainer``) after one warm-up step. The raster scenes render one frame
+at t = 0.5 of ``raster_scenes.scene``: ``basic_planes`` (900x600),
+``multipass`` (1920x1080, prepass + lit pass) and ``grid10k`` (the
+10,082-triangle grid of ``tools/profile_raster.py`` at 1920x1080,
+mip-sampled).
+Prints, per mode, the CUDA-event
 time per frame (or step), the summed device time per frame of the top
 kernels by name, the number of kernel launches per frame and the device
 busy share (summed kernel time over wall time). Needs a CUDA device; exits
@@ -53,8 +58,8 @@ def _profile(torch, frame, frames: int):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--scene", choices=("fog", "inria", "train"),
-                    default="fog")
+    ap.add_argument("--scene", choices=("fog", "inria", "train",
+                                        *RASTER_SCENES), default="fog")
     ap.add_argument("--frames", type=int, default=5)
     ap.add_argument("--top", type=int, default=25)
     args = ap.parse_args(argv)
@@ -67,6 +72,8 @@ def main(argv=None) -> int:
     dev = torch.device("cuda")
     if args.scene == "train":
         modes = {"train step": _train_step(W, H, n, dev)}
+    elif args.scene in RASTER_SCENES:
+        modes = {f"{args.scene} frame": _raster_frame(args.scene, dev)}
     else:
         modes = _render_modes(torch, args.scene, W, H, n, dev)
     for name, frame in modes.items():
@@ -79,6 +86,17 @@ def main(argv=None) -> int:
         for dev_ms, count, key in rows[:args.top]:
             print(f"  {dev_ms:9.4f} ms/frame  {count:6.1f}/frame  {key[:90]}")
     return 0
+
+
+RASTER_SCENES = ("basic_planes", "multipass", "grid10k")
+
+
+def _raster_frame(scene, dev):
+    """One frame of a raster scene at t = 0.5 (camera included), as a
+    closure."""
+    from .raster_scenes import scene as raster_scene
+    sc = raster_scene(scene, dev)
+    return lambda: sc.frame(0.5)
 
 
 def _train_step(W, H, n, dev):

@@ -1,10 +1,13 @@
-"""Camera math for the 3DGS path, in float32 with the JAX ``rmath`` op order.
+"""Camera and transform math in float32 with the JAX ``rmath`` op order.
 
-Counterpart of ``ray_eater_tpu/rmath.py`` (the subset the flythrough camera
-needs). Matrices are logical row-major ``(4, 4)`` float32 tensors that
-multiply column vectors on the right. Functions that take tensors follow
-their device; functions that build tensors from Python numbers take
-``device`` (default ``"cuda"``).
+Counterpart of ``ray_eater_tpu/rmath.py``: the flythrough camera of the
+3DGS path and the model/view/projection math of the raster path, including
+the reference's **mirrored** ``look_at`` (math.zig:295-314; kept as it is
+for image parity). Matrices are logical row-major ``(4, 4)`` float32
+tensors that multiply column vectors on the right. Products are written out
+as ordered multiply-adds, so they round the same on every device. Functions
+that take tensors follow their device; functions that build tensors from
+Python numbers take ``device`` (default ``"cuda"``).
 """
 
 from __future__ import annotations
@@ -58,6 +61,73 @@ def cross(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 def sub(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Vector subtract."""
     return a - b
+
+
+def dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """3D dot product, summed in index order."""
+    return a[0] * b[0] + a[1] * b[1] + a[2] * b[2]
+
+
+def mat4(rows, device="cuda") -> torch.Tensor:
+    """Row-major (4, 4) float32 matrix (math.zig:179-190)."""
+    return _f32(rows, device).reshape(4, 4)
+
+
+def identity(device="cuda") -> torch.Tensor:
+    """4x4 identity (math.zig:196-203)."""
+    return torch.eye(4, dtype=_F32, device=device)
+
+
+def mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Matrix product ``a @ b`` (math.zig:340-359), each entry summed over
+    the inner index in order."""
+    out = a[:, 0:1] * b[0:1, :]
+    for k in range(1, 4):
+        out = out + a[:, k:k + 1] * b[k:k + 1, :]
+    return out
+
+
+def rotate_y(m: torch.Tensor, rads) -> torch.Tensor:
+    """Post-multiply by the Y rotation (math.zig:245-251)."""
+    r = _f32(rads, m.device)
+    c, s = torch.cos(r), torch.sin(r)
+    z, o = torch.zeros_like(c), torch.ones_like(c)
+    rot = torch.stack([torch.stack([c, z, s, z]),
+                       torch.stack([z, o, z, z]),
+                       torch.stack([-s, z, c, z]),
+                       torch.stack([z, z, z, o])])
+    return mul(m, rot)
+
+
+def look_at(eye: torch.Tensor, center: torch.Tensor,
+            world_up: torch.Tensor | None = None) -> torch.Tensor:
+    """The reference's view matrix (math.zig:295-314): rows (right, up,
+    -forward), translation ``(-right.eye, -up.eye, -forward.eye)``. Its
+    depth row evaluates to ``const - distance``, so the raster path resolves
+    overlaps far-over-near, as the reference renders; do not "fix" it (3DGS
+    uses :func:`look_at_zforward`)."""
+    eye = eye.to(_F32)
+    center = center.to(_F32)
+    if world_up is None:
+        world_up = torch.tensor(GLOBAL_UP, dtype=_F32, device=eye.device)
+    z = norm(sub(center, eye))       # forward
+    x = norm(cross(z, world_up))     # right
+    y = norm(cross(x, z))            # up
+    rot3 = torch.stack([x, y, -z])
+    t = torch.stack([-dot(x, eye), -dot(y, eye), -dot(z, eye)])
+    top = torch.cat([rot3, t[:, None]], 1)
+    bottom = torch.tensor([[0.0, 0.0, 0.0, 1.0]], dtype=_F32,
+                          device=eye.device)
+    return torch.cat([top, bottom], 0)
+
+
+def transform_points(m: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:
+    """Apply a 4x4 matrix to ``(N, 3)`` points: ``(N, 4)`` clip coordinates
+    ``m @ (x, y, z, 1)`` (shaders/shader.vert:16)."""
+    pts = pts.to(_F32)
+    out = (pts[:, 0:1] * m[:, 0][None] + pts[:, 1:2] * m[:, 1][None]
+           + pts[:, 2:3] * m[:, 2][None])
+    return out + m[:, 3][None]
 
 
 def look_at_zforward(eye: torch.Tensor, center: torch.Tensor,

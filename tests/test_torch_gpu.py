@@ -1,5 +1,5 @@
-"""K1–K5 on a CUDA device against their plain PyTorch versions, and one
-training step through K4 and K5.
+"""K1–K9 on a CUDA device against their plain PyTorch versions, one
+training step through K4 and K5, and raster frames through K6–K9.
 
 Marked ``gpu``: each test decides inside itself whether a CUDA device is
 present and skips when there is none. Run on a GPU machine with
@@ -11,7 +11,9 @@ Tolerances: K1 floats within rtol 1e-5 and integers equal on all but
 checkpoints) within 2e-3 max abs and 1e-5 mean abs (running product vs
 cumprod), exec equal on ≥ 99.9% of tiles; K5 within 1e-4 × the plain
 version's largest |gradient| (reassociated sums, shared-memory atomics in
-no fixed order).
+no fixed order); K6 and K7 winner ids equal and λ0/λ1/depth within 1e-6
+where they agree (the same operations in the same order, --fmad=false),
+K8 equal, K9 within 1e-6.
 """
 
 import numpy as np
@@ -26,6 +28,9 @@ from ray_eater_tpu_torch.ops import gs
 pytestmark = pytest.mark.gpu
 
 W, H = 480, 270
+NO_LAUNCHES = {"k1_project": 0, "k2_composite": 0, "k3_composite_tail": 0,
+               "k4_composite_ckpt": 0, "k5_composite_bwd": 0, "k6_raster": 0,
+               "k7_raster_binned": 0, "k8_shade_fetch": 0, "k9_subtile": 0}
 
 
 def _cuda():
@@ -81,9 +86,7 @@ def test_render_is_finite_and_counts_launches(scene):
                               max_splats_per_tile=176)
     assert img.shape == (H, W, 3) and img.is_cuda
     assert bool(torch.isfinite(img).all())
-    assert _cuda.launches == {"k1_project": 1, "k2_composite": 1,
-                              "k3_composite_tail": 0,
-                              "k4_composite_ckpt": 0, "k5_composite_bwd": 0}
+    assert _cuda.launches == dict(NO_LAUNCHES, k1_project=1, k2_composite=1)
     assert np.isfinite(img.cpu().numpy()).all()
 
 
@@ -141,9 +144,8 @@ def test_inria_render_counts_launches(inria, exact):
     out = gs.render_gaussians(cloud, view, proj, W, H, **kw)
     img = out if exact else out[0]
     assert img.shape == (H, W, 3) and bool(torch.isfinite(img).all())
-    assert _cuda.launches == {"k1_project": 1, "k2_composite": 1,
-                              "k3_composite_tail": 0 if exact else 1,
-                              "k4_composite_ckpt": 0, "k5_composite_bwd": 0}
+    assert _cuda.launches == dict(NO_LAUNCHES, k1_project=1, k2_composite=1,
+                                  k3_composite_tail=0 if exact else 1)
 
 
 def _train_args(scene, tile_w):
@@ -203,3 +205,106 @@ def test_train_step_is_finite_and_counts_launches(scene):
     assert _cuda.launches["k5_composite_bwd"] == 1
     for t in params.tensors():
         assert bool(torch.isfinite(t).all())
+
+
+# ---- raster and sampling: K6-K9 ----------------------------------------------
+
+RASTER_MODES = [(True, False, False, False), (True, False, True, False),
+                (False, True, False, False), (True, True, False, True)]
+
+
+def _raster_frame(dev, name="grid", w=W, h=H, t=0.4):
+    """A frame's draw setup: the 288-triangle double-sided grid (binned),
+    or the multipass quads (dense), with the mip-sampled checkerboard."""
+    from ray_eater_tpu_torch import raster_scenes as rs
+    from ray_eater_tpu_torch.core import resources as res
+    from ray_eater_tpu_torch.ops import raster
+    sc = rs.scene("grid288" if name == "grid" else "multipass", dev, w, h)
+    pipe = sc.passes[-1][0]
+    fb = res.create_framebuffer(w, h, device=dev)
+    return raster._vertex_stage(pipe, sc.mesh, sc.uniforms(t), fb), pipe, fb
+
+
+def _assert_fold_equal(k, p):
+    ids_k, ids_p = k[1], p[1]
+    assert torch.equal(ids_k, ids_p)
+    for a, b in zip(k, p):
+        if a.dtype == torch.float32:
+            fin = torch.isfinite(b)
+            assert torch.equal(torch.isfinite(a), fin)
+            assert float((a - b)[fin].abs().max()) <= 1e-6
+
+
+@pytest.mark.parametrize("mode", RASTER_MODES)
+def test_k6_matches_plain(mode):
+    from ray_eater_tpu_torch.ops import raster
+    dev = _cuda()
+    ds, _, fb = _raster_frame(dev, "multipass", 1920, 1080)
+    dinit = torch.cat([fb.depth, torch.full((8, 1920), float("inf"),
+                                            device=dev)])
+    bits = raster._mode_bits(*mode)
+    n = raster._fold_bound(ds.inv_w.shape[0], ds.setup.shape[1])
+    k = raster._raster_dense_k6(ds.setup, dinit, n, 1920.0, 1080.0, bits)
+    p = raster._raster_dense_plain(ds.setup, dinit, n, 1920.0, 1080.0, bits)
+    assert int((k[1] >= 0).sum()) > 0
+    _assert_fold_equal(k, p)
+
+
+@pytest.mark.parametrize("mode", RASTER_MODES)
+def test_k7_k8_match_plain(mode):
+    from ray_eater_tpu_torch.ops import raster
+    dev = _cuda()
+    ds, _, fb = _raster_frame(dev)
+    hp = 288
+    dinit = torch.cat([fb.depth, torch.full((hp - fb.depth.shape[0],
+                                             fb.depth.shape[1]),
+                                            float("inf"), device=dev)])
+    ft = raster._feature_table(ds.tri_vary, ds.inv_w)
+    b = raster._bin_triangles(ds.setup, dinit.shape[1] // 128, hp // 32,
+                              feat=ft)
+    bits = raster._mode_bits(*mode)
+    args = (b.pack, b.row_begin, b.row_end, dinit, float(W), float(H), bits)
+    k = raster._raster_binned_k7(*args)
+    p = raster._raster_binned_plain(*args)
+    vis = raster._tile_mask(b.visited, dinit.shape[1] // 128, hp // 32)
+    assert int((p[1][vis] >= 0).sum()) > 0
+    _assert_fold_equal([a[vis] for a in k], [a[vis] for a in p])
+    fk = raster._shade_fetch_k8(b.fpack, k[4], b.visited)
+    fp = raster._shade_fetch_plain(b.fpack, k[4], b.visited)
+    assert torch.equal(fk, fp)
+
+
+def test_k9_matches_plain():
+    from ray_eater_tpu_torch import raster_scenes as rs
+    from ray_eater_tpu_torch.ops import raster, sampling
+    dev = _cuda()
+    ds, pipe, fb = _raster_frame(dev)
+    (gd, gt, g0, g1, feats), zt = raster._raster_draw(pipe, ds, fb)
+    pv = raster._interpolate(gt, g0, g1, ds.tri_vary, ds.inv_w, zt, feats)
+    tex = rs.mip_checker_texture(dev)
+    plan = sampling._subtile_plan(tex, pv.vary["uv"], pv.mask)
+    args = (plan.w0i, plan.w1i, *plan.planes, tex.win_table)
+    k = sampling._subtile_call(*args)
+    p = sampling._subtile_plain(*args)
+    assert float((k - p).abs().max()) <= 1e-6
+
+
+def test_raster_frames_count_launches():
+    from ray_eater_tpu_torch import basic_planes, multipass
+    from ray_eater_tpu_torch import raster_scenes as rs
+    from ray_eater_tpu_torch.ops import _cuda as kernels
+    dev = _cuda()
+    kernels.reset_launches()
+    r = basic_planes.run(basic_planes.parse_args(["--frames", "2"]))
+    assert kernels.launches == dict(NO_LAUNCHES, k6_raster=3)
+    assert bool(torch.isfinite(r["fb"].color).all())
+    kernels.reset_launches()
+    multipass.run(multipass.parse_args(["--frames", "2", "--width", "480",
+                                        "--height", "270"]))
+    assert kernels.launches == dict(NO_LAUNCHES, k6_raster=6)
+    sc = rs.scene("grid288", dev, W, H)
+    kernels.reset_launches()
+    fb = sc.frame(0.4)
+    assert kernels.launches == dict(NO_LAUNCHES, k7_raster_binned=1,
+                                  k8_shade_fetch=1, k9_subtile=1)
+    assert bool(torch.isfinite(fb.color).all())

@@ -90,3 +90,40 @@ def test_generators_default_to_cuda():
     for fn in (gaussians.random_cloud, gaussians.gaussian_cloud,
                gaussians.cloud_from_numpy, flythrough_camera, rmath.vec):
         assert inspect.signature(fn).parameters["device"].default == "cuda"
+
+
+def test_raster_math_matches_jax():
+    """identity, mat4, mul, rotate_y, transform_points and the mirrored
+    look_at of the raster path, against the JAX package (rtol 1e-6: the
+    port sums products in index order, XLA's dot in its own)."""
+    rows = [[1, 2, 3, 4], [3, 2, 1, 1], [1, 2, 3, 2], [2, 3, 7, 3]]
+    rows2 = [[4, 5, 6, 7], [6, 5, 4, 3], [4, 6, 5, 9], [2, 8, 5, 3]]
+    m1, m2 = rmath.mat4(rows, device="cpu"), rmath.mat4(rows2, device="cpu")
+    np.testing.assert_array_equal(
+        rmath.mul(m1, m2).numpy(),
+        [[36, 65, 49, 52], [30, 39, 36, 39], [32, 49, 39, 46],
+         [60, 91, 74, 95]])
+    np.testing.assert_array_equal(rmath.identity("cpu").numpy(), np.eye(4))
+    for t in (0.0, 0.3, 0.983333):
+        r = rmath.radians(45.0, device="cpu") * t
+        got = rmath.rotate_y(rmath.identity("cpu"), r).numpy()
+        want = np.asarray(jrmath.rotate_y(jrmath.identity(),
+                                          jrmath.radians(45.0) * t))
+        np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-7)
+    eye, ctr = (2.0, 2.0, 2.0), (0.0, 0.0, 0.0)
+    v = rmath.look_at(rmath.vec(*eye, device="cpu"),
+                      rmath.vec(*ctr, device="cpu")).numpy()
+    np.testing.assert_allclose(
+        v, np.asarray(jrmath.look_at(jrmath.vec(*eye), jrmath.vec(*ctr))),
+        rtol=1e-6, atol=1e-6)
+    # tests/test_math.py's golden: rows right / up / -forward, t = (0, 0,
+    # 2 sqrt 3), so the centre lands at +z_view (the mirrored convention)
+    r2, r3, r6 = np.sqrt(2) / 2, 1 / np.sqrt(3), 1 / np.sqrt(6)
+    np.testing.assert_allclose(v, [[-r2, 0, r2, 0], [r6, -2 * r6, r6, 0],
+                                   [r3, r3, r3, 2 * np.sqrt(3)],
+                                   [0, 0, 0, 1]], atol=1e-6)
+    pts = np.random.RandomState(0).randn(5, 3).astype(np.float32)
+    m = rmath.perspective(1.0, 1.5, 0.1, 30.0, device="cpu")
+    got = rmath.transform_points(m, torch.from_numpy(pts)).numpy()
+    want = np.asarray(jrmath.transform_points(np.asarray(m.numpy()), pts))
+    np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)
