@@ -26,7 +26,18 @@ kernel against its plain PyTorch version, and drives the port's main paths:
   1920x1080 through ``render_mesh`` with a trilinear anisotropic sampler
   (60 frames; the subtile sampler's frame gated at >= 30 dB PSNR against
   the per-pixel gather sampler): K7, K8, K9. The last frames of
-  basic_planes, multipass and the grid are written to ``chiprun_out/raster/``.
+  basic_planes, multipass and the grid are written to ``chiprun_out/raster/``;
+* the compute_drawing sample: ``python -m
+  ray_eater_tpu_torch.compute_drawing`` (1024 particles splatted once into
+  a 900x600 image, then 60 frames drawing it on a fullscreen quad; the
+  presented frame must be the splatted image): K10, K6. Its last frame goes
+  to ``chiprun_out/compute_drawing/``. K10 is also checked on 65,536
+  particles at 1920x1080;
+* SH colours from a PLY: a 1M-splat degree-3 cloud written by ``save_ply``
+  and read back by ``load_ply`` (the file is deleted afterwards), then the
+  frames of ``python -m ray_eater_tpu_torch.gs_viewer`` at its defaults
+  (1920x1080, LOD with temporal budgets, colours evaluated at the eye),
+  gated like the fog flythrough: K1, K2.
 
 Launch counts are zeroed just before each main path and read just after
 it; the ``launches`` of the kernels record are their sum over the paths.
@@ -90,6 +101,20 @@ K2_OPS_PER_PAIR_PIXEL = 13   # ~12 flops + one expf per executed pair-pixel
 K5_OPS_ALPHA, K5_OPS_LIVE, K5_OPS_UNCLAMPED = 15, 17, 30
 REC_BYTES = 9 * 4        # used record columns read per executed row
 GRAD_BYTES = 12 * 4      # K5's gradient row written per executed row
+
+# particle splat (K10), compute_drawing and the SH path
+DRAWING_OUT = "chiprun_out/compute_drawing"
+DRAWING_SMALL = (300, 200)
+K10_WIDE = dict(w=1920, h=1080, n=65_536, margin=40, r=20)
+SH_PLY = "chiprun_out/sh_1m.ply"   # written, read back and deleted
+SH_SMALL = 20_000
+SH_EYE = (2.0, 0.8, 1.0)
+# CUDA vs CPU SH colours: the direction's norm and the band products may
+# round differently (sqrt, division)
+SH_TOL = 1e-6
+# PLY round trip of the activated fields: logit/sigmoid, log/exp and the
+# DC decode in float32
+SH_PLY_TOL = 1e-5
 
 # raster and sampling (K6-K9)
 RASTER_FRAMES = 60
@@ -296,42 +321,61 @@ def check_small(torch, gs, scene: str, make_cloud, flythrough_camera,
                 f"small {label}: mean abs {mean}, share off {edge}")
 
 
-def main_path(torch, gs, cuda, scene: str, cloud, knobs, kw_meas, kw_exact,
-              flythrough_camera):
-    """One flythrough: a 60-frame LOD window (temporal budgets if the
-    scene's knobs say so), then the PSNR gate (6 sampled times, each LOD
-    frame — warmed by an 8-frame lead-in when temporal — against exact
-    mode). Launch counts are zeroed just before and read just after.
-    Returns the launch counts and the frame numbers."""
-    mpt, dry_floor = knobs["max_splats_per_tile"], knobs["dry_floor"]
-    temporal = knobs["temporal"]
-    warmup = GATE_WARMUP if temporal else 0
-    tile_w = knobs["tile_w"]
-    ntx, nty = gs.num_tiles(W, H, tile_w)
-    dev = cloud.means.device
-    budget0 = torch.stack([torch.full((ntx * nty,), mpt, dtype=torch.int32,
-                                      device=dev),
-                           torch.zeros(ntx * nty, dtype=torch.int32,
-                                       device=dev)], -1)
+class BenchFrames:
+    """The frames of a bench flythrough (fog, inria) for :func:`main_path`:
+    ``render_gaussians`` on ``flythrough_camera`` under the scene's knobs.
+    ``frame(t, budget)`` is the measured LOD frame with its stats,
+    ``exact(t)`` the PSNR gate's reference."""
 
-    def frame(t, budget):
-        view, proj = flythrough_camera(t, W, H, device=dev)
-        return gs.render_gaussians(cloud, view, proj, W, H,
-                                   lod_budget=budget if temporal else None,
-                                   **kw_meas)
+    def __init__(self, gs, cloud, knobs, kw_meas, kw_exact,
+                 flythrough_camera):
+        self.gs, self.cloud, self.knobs = gs, cloud, knobs
+        self.kw_meas, self.kw_exact = kw_meas, kw_exact
+        self.camera = flythrough_camera
+        self.temporal = knobs["temporal"]
 
-    def next_budget(st, budget):
-        if not temporal:
+    def frame(self, t, budget):
+        view, proj = self.camera(t, W, H, device=self.cloud.means.device)
+        return self.gs.render_gaussians(
+            self.cloud, view, proj, W, H,
+            lod_budget=budget if self.temporal else None, **self.kw_meas)
+
+    def exact(self, t):
+        view, proj = self.camera(t, W, H, device=self.cloud.means.device)
+        return self.gs.render_gaussians(self.cloud, view, proj, W, H,
+                                        **self.kw_exact)
+
+    def initial_budget(self):
+        return self.gs.initial_lod_budget(
+            W, H, self.knobs["tile_w"], self.knobs["max_splats_per_tile"],
+            self.cloud.means.device)
+
+    def next_budget(self, st, budget):
+        if not self.temporal:
             return budget
-        return gs.update_lod_budget(st["tile_exec"], mpt, ntx, nty,
-                                    st["tile_kept"], st["tile_count"],
-                                    dry_floor=dry_floor)
+        ntx, nty = self.gs.num_tiles(W, H, self.knobs["tile_w"])
+        return self.gs.update_lod_budget(
+            st["tile_exec"], self.knobs["max_splats_per_tile"], ntx, nty,
+            st["tile_kept"], st["tile_count"],
+            dry_floor=self.knobs["dry_floor"])
+
+
+def main_path(torch, cuda, scene: str, frames):
+    """One flythrough through ``frames`` (a :class:`BenchFrames` or a
+    ``gs_viewer.Viewer``): a 60-frame LOD window (temporal budgets if
+    ``frames.temporal``), then the PSNR gate (6 sampled times, each LOD
+    frame — warmed by an 8-frame lead-in when temporal — against the exact
+    frame). Launch counts are zeroed just before and read just after.
+    Returns the launch counts."""
+    warmup = GATE_WARMUP if frames.temporal else 0
+    frame, next_budget = frames.frame, frames.next_budget
+    dev = frames.cloud.means.device
+    budget0 = frames.initial_budget()
 
     # warm-up frames, LOD and exact (allocator growth, first launches),
     # outside the counted run
     img, st = frame(0.0, budget0)
-    view, proj = flythrough_camera(0.0, W, H, device=dev)
-    gs.render_gaussians(cloud, view, proj, W, H, **kw_exact)
+    frames.exact(0.0)
     torch.cuda.synchronize()
 
     cuda.reset_launches()
@@ -368,11 +412,10 @@ def main_path(torch, gs, cuda, scene: str, cloud, knobs, kw_meas, kw_exact,
             _, st = frame(f32(t), b)
             b = next_budget(st, b)
         a, st = frame(f32(ts), b)
-        view, proj = flythrough_camera(f32(ts), W, H, device=dev)
         s0 = torch.cuda.Event(enable_timing=True)
         s1 = torch.cuda.Event(enable_timing=True)
         s0.record()
-        ref = gs.render_gaussians(cloud, view, proj, W, H, **kw_exact)
+        ref = frames.exact(f32(ts))
         s1.record()
         s1.synchronize()
         exact_ms.append(s0.elapsed_time(s1))
@@ -857,7 +900,7 @@ def raster_paths(torch, cuda, dev):
         return fb
 
     cuda.reset_launches()
-    ms, fb = rs.frame_loop(frame, RASTER_FRAMES, dev)
+    ms, fb, host_ms = rs.frame_loop(frame, RASTER_FRAMES, dev)
     torch.cuda.synchronize()
     paths["grid10k"] = dict(cuda.launches)
     per = {k: v / (RASTER_FRAMES + 1) for k, v in paths["grid10k"].items()
@@ -865,7 +908,8 @@ def raster_paths(torch, cuda, dev):
     save_png(f"{RASTER_OUT}/grid10k_frame_last.png",
              to_srgb_u8(fb.color[:h, :w]))
     log(f"grid10k {w}x{h} ({m.num_triangles} triangles, mip + 4x aniso): "
-        f"{RASTER_FRAMES} frames, {ms:.3f} ms/frame (CUDA events); launches "
+        f"{RASTER_FRAMES} frames, {ms:.3f} ms/frame (CUDA events), "
+        f"{host_ms:.3f} ms/frame (host clock); launches "
         f"{paths['grid10k']} ({per} a frame); PNG "
         f"{RASTER_OUT}/grid10k_frame_last.png")
     require(bool(finite), "non-finite pixels in the grid10k window")
@@ -891,6 +935,189 @@ def raster_paths(torch, cuda, dev):
                       ("grid10k", "k9_subtile")):
         require(paths[name][key] > 0, f"{key} was not launched on {name}")
     return paths
+
+
+# ---- particle splat: K10; compute_drawing -----------------------------------
+
+def splat_library(torch, pos, h: int, w: int, r: int):
+    """The K10 yardstick: the box union by two PyTorch calls, an
+    ``index_put_`` of the truncated positions into a point image padded by
+    r on each side (positions past the padding add 0 at a clamped index)
+    and ``F.max_pool2d`` with a 2r window, cropped to the (h, w) image."""
+    import torch.nn.functional as F
+    xi = pos[:, 0].to(torch.int32).long() + r
+    yi = pos[:, 1].to(torch.int32).long() + r
+    ok = (xi >= 0) & (xi < w + 2 * r) & (yi >= 0) & (yi < h + 2 * r)
+    pts = torch.zeros((h + 2 * r, w + 2 * r), dtype=torch.float32,
+                      device=pos.device)
+    pts.index_put_((yi.clamp(0, h + 2 * r - 1), xi.clamp(0, w + 2 * r - 1)),
+                   ok.to(torch.float32), accumulate=True)
+    pooled = F.max_pool2d(pts[None, None], kernel_size=2 * r, stride=1)
+    return (pooled[0, 0, 1:h + 1, 1:w + 1] > 0).to(torch.float32)
+
+
+def check_k10(torch, splat, pos, h: int, w: int, r: int, label: str,
+              reps: int):
+    """K10 vs its plain version (and the library yardstick) on one
+    particle set: masks equal; returns the kernels-line record."""
+    k = splat._splat_k10(pos, h, w, r)
+    p = splat._splat_plain(pos, h, w, r)
+    lib = splat_library(torch, pos, h, w, r)
+    torch.cuda.synchronize()
+    err = float((k - p).abs().max())
+    lib_err = float((k[:h, :w] - lib).abs().max())
+    hp, wp = k.shape
+    log(f"K10 vs plain [{label}]: {pos.shape[0]} particles, r {r}, mask "
+        f"{hp}x{wp}, {float(k[:h, :w].mean()) * 100:.2f}% covered; max abs "
+        f"{err:g}; library yardstick max abs {lib_err:g}")
+    require(err == 0.0, f"K10 [{label}] differs from its plain version")
+    require(lib_err == 0.0, f"K10 [{label}] differs from the library call")
+    rec = kernel_record(
+        torch, "K10 splat mask", "ray_eater_tpu_torch/csrc/splat.cu",
+        "ray_eater_tpu/ops/splat.py:42", splat._splat_k10, splat._splat_plain,
+        (pos, h, w, r), err, hp * wp * 4 + pos.shape[0] * 8, 0, label, reps)
+    rec["library_ms"] = time_ms(torch, lambda: splat_library(torch, pos, h, w,
+                                                             r), reps)
+    log(f"K10 [{label}] library yardstick (index_put_ + max_pool2d, two "
+        f"calls) {rec['library_ms']:.4f} ms")
+    return rec
+
+
+def compute_drawing_path(torch, cuda):
+    """The compute_drawing main path: the entry point's run() (900x600,
+    1024 particles, 60 frames) with its launches counted from zero; the
+    presented frame must be the splatted image."""
+    from ray_eater_tpu_torch import compute_drawing as cd
+    from ray_eater_tpu_torch.core.swapchain import encode_present
+    args = cd.parse_args(["--frames", str(RASTER_FRAMES), "--out",
+                          DRAWING_OUT])
+    cuda.reset_launches()
+    r = cd.run(args)
+    torch.cuda.synchronize()
+    launches = dict(cuda.launches)
+    img = r["drawing"].image
+    want = encode_present(img, cd.WIDTH, cd.HEIGHT, srgb=False)
+    differ = int((r["u8"] != want).any(-1).sum())
+    log(f"compute_drawing {cd.WIDTH}x{cd.HEIGHT} ({cd.PARTICLE_COUNT} "
+        f"particles, r {cd.PIXELS_RAD}): {RASTER_FRAMES} frames, "
+        f"{r['ms_per_frame']:.3f} ms/frame (CUDA events), "
+        f"{r['host_ms_per_frame']:.3f} ms/frame (host clock); launches "
+        f"{launches}; presented pixels differing from the splatted image: "
+        f"{differ}; PNG {r['png']}")
+    require(launches["k10_splat"] >= 1, "K10 was not launched by "
+            "compute_drawing")
+    require(launches["k6_raster"] >= RASTER_FRAMES,
+            f"K6 launched {launches['k6_raster']} times by compute_drawing")
+    require(differ == 0, f"compute_drawing: {differ} presented pixels differ "
+            "from the splatted image")
+    return launches
+
+
+def check_drawing_small(torch, devs=("cuda", "cpu")):
+    """A 300x200 compute_drawing frame (32 particles) on CUDA vs on the
+    CPU (plain versions)."""
+    from ray_eater_tpu_torch import compute_drawing as cd
+    from ray_eater_tpu_torch.core.swapchain import encode_present
+    w, h = DRAWING_SMALL
+    out = []
+    for dev in devs:
+        d = cd.setup(dev, 0, w, h, 32)
+        c = d.frame(0.25).color
+        out.append((d.image.cpu(), c.cpu(),
+                    encode_present(c, w, h, srgb=False).cpu()))
+    (ig, cg, ug), (ic, cc, uc) = out
+    err = float((cg - cc).abs().max())
+    log(f"small compute_drawing frame {w}x{h}: CUDA vs CPU image equal "
+        f"{bool(torch.equal(ig, ic))}, frame max abs {err:.3e}, presented "
+        f"frames equal {bool(torch.equal(ug, uc))}")
+    require(torch.equal(ig, ic) and torch.equal(ug, uc) and err <= RASTER_TOL,
+            f"small compute_drawing frame: CUDA vs CPU max abs {err}")
+
+
+# ---- SH colours from a PLY through gs_viewer: K1, K2 ------------------------
+
+def check_sh_small(torch, devs=("cuda", "cpu")):
+    """eval_sh_colors of a small degree-3 cloud (gs_viewer's synthetic
+    cloud with 15 SH bands) on CUDA vs on the CPU."""
+    from ray_eater_tpu_torch.gs_viewer import synthetic_cloud
+    from ray_eater_tpu_torch.models.gaussians import eval_sh_colors
+    # one CPU thread: PyTorch's first multithreaded CPU sqrt of a process
+    # has come out approximate (errors ~1e-3 on one thread's share of
+    # the elements, torch 2.13 on an AVX-512 host)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        outs = [eval_sh_colors(synthetic_cloud(SH_SMALL, 15, dev),
+                               torch.tensor(SH_EYE, device=dev)).cpu()
+                for dev in devs]
+    finally:
+        torch.set_num_threads(threads)
+    err = float((outs[0] - outs[1]).abs().max())
+    log(f"small SH colours ({SH_SMALL} splats, degree 3): CUDA vs CPU max "
+        f"abs {err:.3e}")
+    require(err <= SH_TOL, f"SH colours CUDA vs CPU differ by {err}")
+
+
+def sh_path(torch, gs, cuda, dev):
+    """The SH main path: gs_viewer's 1M-splat synthetic cloud with 15 SH
+    bands (degree 3) written by save_ply and read back by load_ply, then
+    gs_viewer's frames at its defaults (LOD with temporal budgets, SH
+    colours at the eye) through main_path. Returns the launch counts."""
+    import os
+    from ray_eater_tpu_torch import gs_viewer
+    from ray_eater_tpu_torch.models.gaussians import (eval_sh_colors,
+                                                      load_ply, save_ply)
+    src = gs_viewer.synthetic_cloud(N_SPLATS, 15, dev)
+    os.makedirs(os.path.dirname(SH_PLY), exist_ok=True)
+    try:
+        t0 = time.perf_counter()
+        save_ply(SH_PLY, src)
+        t1 = time.perf_counter()
+        size = os.path.getsize(SH_PLY)
+        cloud = load_ply(SH_PLY, device=dev)
+        t2 = time.perf_counter()
+    finally:
+        if os.path.exists(SH_PLY):
+            os.remove(SH_PLY)
+    errs = {k: float((getattr(cloud, k) - getattr(src, k)).abs().max())
+            for k in ("means", "scales", "quats", "opacities", "colors",
+                      "sh_rest")}
+    log(f"SH PLY {N_SPLATS} splats, degree {cloud.sh_degree}: {size} B, "
+        f"save_ply {t1 - t0:.2f} s, load_ply {t2 - t1:.2f} s; round trip "
+        f"max abs " + " ".join(f"{k} {v:.2e}" for k, v in errs.items()))
+    require(cloud.sh_degree == 3 and errs["means"] == 0.0
+            and errs["sh_rest"] == 0.0, "PLY round trip: means/sh_rest")
+    require(max(errs.values()) <= SH_PLY_TOL, f"PLY round trip: {errs}")
+    del src
+
+    v = gs_viewer.viewer(gs_viewer.parse_args([]), cloud)
+    log(f"gs_viewer defaults: mpt {v.max_per_tile}, cap_factor "
+        f"{v.cap_factor}, tile_w {v.tile_w}, big_splat_cap "
+        f"{v.big_splat_cap}, {v.width}x{v.height}")
+    view, proj, eye = v.camera(0.0)
+    colors = eval_sh_colors(cloud, eye)
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        eval_sh_colors(cloud, eye)
+        torch.cuda.synchronize()
+    sh_launches = sum(e.count for e in prof.key_averages()
+                      if e.device_type == torch.autograd.DeviceType.CUDA)
+    sh_ms = time_ms(torch, lambda: eval_sh_colors(cloud, eye), 20)
+    log(f"eval_sh_colors at {N_SPLATS} splats: {sh_ms:.4f} ms (CUDA "
+        f"events), {sh_launches} kernel launches a call (torch.profiler)")
+    dc = gs.render_gaussians(cloud, view, proj, v.width, v.height,
+                             tile_w=v.tile_w)
+    sh = v.exact(0.0)
+    diff = float((sh - dc).abs().max())
+    log(f"SH frame vs cam_pos=None frame (exact, t=0): max abs {diff:.3e}; "
+        f"colours in [{float(colors.min()):.3f}, {float(colors.max()):.3f}]")
+    require(diff > 1e-2, "the SH frame equals the DC-colour frame")
+    del dc, sh, colors
+    launches = main_path(torch, cuda, "sh", v)
+    for key, name in (("k1_project", "K1"), ("k2_composite", "K2")):
+        require(launches[key] > 0, f"{name} was not launched on the SH path")
+    return launches
 
 
 def run() -> int:
@@ -935,11 +1162,8 @@ def run() -> int:
     k1 = check_k1(torch, gs, cloud, view, proj, "fog, t=0",
                   gs.level1_max_radius(gs.KY))
 
-    ntx, nty = gs.num_tiles(W, H, knobs["tile_w"])
-    budget0 = torch.stack([
-        torch.full((ntx * nty,), knobs["max_splats_per_tile"],
-                   dtype=torch.int32, device=dev),
-        torch.zeros(ntx * nty, dtype=torch.int32, device=dev)], -1)
+    budget0 = gs.initial_lod_budget(W, H, knobs["tile_w"],
+                                    knobs["max_splats_per_tile"], dev)
     lay_lod = gs._frame_layout(
         cloud, view, proj, W, H,
         pairs_cap_factor=kw_meas["pairs_cap_factor"],
@@ -960,8 +1184,8 @@ def run() -> int:
                                           device=d),
                 flythrough_camera, kw_meas, kw_exact)
 
-    fog_launches = main_path(torch, gs, cuda, "fog", cloud, knobs, kw_meas,
-                             kw_exact, flythrough_camera)
+    fog_launches = main_path(torch, cuda, "fog", BenchFrames(
+        gs, cloud, knobs, kw_meas, kw_exact, flythrough_camera))
     for key, name in (("k1_project", "K1"), ("k2_composite", "K2")):
         require(fog_launches[key] > 0, f"{name} was not launched on the fog "
                 "main path")
@@ -1005,8 +1229,8 @@ def run() -> int:
                 render_kwargs(resolve_knobs("inria", SMALL["n"], env={}),
                               exact=True, interpret=False))
 
-    inria_launches = main_path(torch, gs, cuda, "inria", cloud, knobs,
-                               kw_meas, kw_exact, flythrough_camera)
+    inria_launches = main_path(torch, cuda, "inria", BenchFrames(
+        gs, cloud, knobs, kw_meas, kw_exact, flythrough_camera))
     for key, name in (("k1_project", "K1"), ("k2_composite", "K2"),
                       ("k3_composite_tail", "K3")):
         require(inria_launches[key] > 0, f"{name} was not launched on the "
@@ -1060,27 +1284,49 @@ def run() -> int:
     torch.cuda.empty_cache()
     check_raster_small(torch, rs)
     raster_launches = raster_paths(torch, cuda, dev)
+    torch.cuda.empty_cache()
+
+    # ---- particle splat: K10 on the sample's pass and a wide check;
+    # compute_drawing ----------------------------------------------------
+    from ray_eater_tpu_torch import compute_drawing as cd
+    from ray_eater_tpu_torch.ops import splat
+    pos = torch.from_numpy(cd.particle_positions(0)).to(dev)
+    k10 = check_k10(torch, splat, pos, cd.HEIGHT, cd.WIDTH, cd.PIXELS_RAD,
+                    "compute_drawing pass 900x600", reps=50)
+    wd = K10_WIDE
+    rng = np.random.RandomState(2)
+    span = np.array([wd["w"], wd["h"]], np.float32) + 2 * wd["margin"]
+    pos = torch.from_numpy((rng.rand(wd["n"], 2) * span - wd["margin"])
+                           .astype(np.float32)).to(dev)
+    wide = check_k10(torch, splat, pos, wd["h"], wd["w"], wd["r"],
+                     f"wide check {wd['w']}x{wd['h']}", reps=20)
+    log(f"K10 wide check: {wide['ms']:.4f} ms, plain {wide['plain_ms']:.4f} "
+        f"ms, bound {wide['bound_ms']:.4f} ms, library "
+        f"{wide['library_ms']:.4f} ms")
+    check_drawing_small(torch)
+    drawing_launches = compute_drawing_path(torch, cuda)
+    torch.cuda.empty_cache()
+
+    # ---- SH colours from a PLY through gs_viewer: K1, K2 ------------------
+    check_sh_small(torch)
+    sh_launches = sh_path(torch, gs, cuda, dev)
+    torch.cuda.empty_cache()
 
     paths = (fog_launches, inria_launches, train_launches, adc_launches,
-             *raster_launches.values())
+             *raster_launches.values(), drawing_launches, sh_launches)
     for d, key in ((k1, "k1_project"), (k2, "k2_composite"),
                    (k3, "k3_composite_tail"), (k4, "k4_composite_ckpt"),
                    (k5, "k5_composite_bwd"), (k6, "k6_raster"),
                    (k7, "k7_raster_binned"), (k8, "k8_shade_fetch"),
-                   (k9, "k9_subtile")):
+                   (k9, "k9_subtile"), (k10, "k10_splat")):
         d["launches"] = sum(p[key] for p in paths)
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
-    k10 = dict(name="K10 splat mask", route=None, source=None,
-               replaces="ray_eater_tpu/ops/splat.py:42", launches=0,
-               max_abs_err=None, ms=None, plain_ms=None, bound_ms=None,
-               bound_by=None, library_ms=None)
     log(f"card: {card}")
     print(json.dumps({"kernels": [{k: d[k] for k in keys}
                                   for d in (k1, k2, k3, k4, k5, k6, k7, k8,
-                                            k9)]
-                      + [dict(k10, status="not ported")]}))
+                                            k9, k10)]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -39,7 +39,7 @@ def run(args) -> dict:
     """Render the animation; returns {"ms_per_frame", "frames", "fb" (the
     last framebuffer), "png"}."""
     sc = scene("basic_planes", args.device, args.width, args.height)
-    ms, fb = frame_loop(sc.frame, args.frames, args.device)
+    ms, fb, _ = frame_loop(sc.frame, args.frames, args.device)
     os.makedirs(args.out, exist_ok=True)
     png = os.path.join(args.out, "frame_last.png")
     if fb is not None:

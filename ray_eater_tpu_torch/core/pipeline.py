@@ -7,6 +7,7 @@ Stage signatures, on tensors:
 * ``vertex_fn(positions (N,3), attrs {name: (N,K)}, uniforms)
   -> (clip (N,4), varyings {name: (N,K)})``
 * ``fragment_fn(varyings {name: (H,W,K)}, resources) -> rgba (H,W,4)``
+* compute: any function of tensors (``fn(resources...) -> outputs``)
 """
 
 from __future__ import annotations
@@ -60,6 +61,14 @@ class GraphicsPipeline:
     fragment_fn: Callable
     state: RasterState = RasterState()
     name: str = "graphics"
+
+
+@dataclasses.dataclass(frozen=True)
+class ComputePipeline:
+    """One compute function (compute.zig:28-89); grids live inside the
+    kernels it launches."""
+    fn: Callable
+    name: str = "compute"
 
 
 def blend_color(mode: BlendMode, src: torch.Tensor,

@@ -1,7 +1,12 @@
 """Gaussian splat scenes (counterpart of ``ray_eater_tpu/models/gaussians.py``).
 
 The generators draw from the same ``np.random.RandomState`` stream as the
-JAX package, so a seed gives bit-identical arrays in both packages.
+JAX package, so a seed gives bit-identical arrays in both packages. PLY
+interchange follows the INRIA 3DGS export convention (x, y, z, f_dc_0..2
+spherical-harmonic DC terms, f_rest_* higher bands, opacity logit,
+scale_0..2 in log space, rot_0..3 quaternion) and decodes in numpy, as the
+JAX package's pure-Python reader does, before the arrays move to the
+device.
 """
 
 from __future__ import annotations
@@ -20,8 +25,9 @@ class GaussianCloud:
     """Struct-of-arrays splat scene (all float32, one device):
     means (N,3) world positions; scales (N,3) linear std-devs;
     quats (N,4) rotations (w,x,y,z); opacities (N,) in [0,1];
-    colors (N,3) linear RGB; sh_rest (N, B, 3) optional higher-order
-    spherical-harmonic coefficients (their evaluation is not ported)."""
+    colors (N,3) linear RGB (the SH-DC term); sh_rest (N, B, 3) optional
+    higher-order spherical-harmonic coefficients (B = (deg+1)^2 - 1) for
+    view-dependent colour, evaluated by :func:`eval_sh_colors`."""
 
     means: torch.Tensor
     scales: torch.Tensor
@@ -33,6 +39,12 @@ class GaussianCloud:
     @property
     def num_splats(self) -> int:
         return self.means.shape[0]
+
+    @property
+    def sh_degree(self) -> int:
+        if self.sh_rest is None:
+            return 0
+        return int(round((self.sh_rest.shape[1] + 1) ** 0.5)) - 1
 
 
 def gaussian_cloud(means, scales, quats, opacities, colors, sh_rest=None,
@@ -147,3 +159,165 @@ def inria_cloud(n: int, seed: int = 0, extent: float = 1.4,
         np.concatenate([opac_s.astype(np.float32),
                         opac_f.astype(np.float32)]),
         np.concatenate([colors_s, colors_f]), device=device)
+
+
+# ---------------------------------------------------------------------------
+# View-dependent colour and PLY interchange (INRIA 3DGS convention)
+# ---------------------------------------------------------------------------
+
+#: SH DC basis constant: color = 0.5 + C0 * f_dc
+SH_C0 = 0.28209479177387814
+
+_PLY_PROPS = ("x", "y", "z", "f_dc_0", "f_dc_1", "f_dc_2", "opacity",
+              "scale_0", "scale_1", "scale_2", "rot_0", "rot_1", "rot_2",
+              "rot_3")
+
+# real SH basis constants for degrees 1..3 (the 3DGS convention)
+_SH_C1 = 0.4886025119029199
+_SH_C2 = (1.0925484305920792, -1.0925484305920792, 0.31539156525252005,
+          -1.0925484305920792, 0.5462742152960396)
+_SH_C3 = (-0.5900435899266435, 2.890611442640554, -0.4570457994644658,
+          0.3731763325901154, -0.4570457994644658, 1.445305721320277,
+          -0.5900435899266435)
+
+
+def eval_sh_colors(cloud: GaussianCloud, cam_pos) -> torch.Tensor:
+    """View-dependent colours: the cloud's SH evaluated at the direction
+    from ``cam_pos`` (3,) (array-like or tensor) to each splat, (N, 3)
+    linear RGB clipped to [0, 1]. Degree 0 returns ``cloud.colors``
+    itself, unclipped. The bands are summed in the JAX package's order
+    (the original 3DGS evaluation, bands y, z, x)."""
+    base = cloud.colors
+    if cloud.sh_rest is None or cloud.sh_rest.shape[1] == 0:
+        return base
+    eye = torch.as_tensor(cam_pos, dtype=torch.float32).to(base.device)
+    d = cloud.means - eye
+    d = d / torch.sqrt(torch.sum(d * d, -1, keepdim=True)).clamp(min=1e-12)
+    x, y, z = d[:, 0:1], d[:, 1:2], d[:, 2:3]
+    sh = cloud.sh_rest
+    deg = cloud.sh_degree
+    out = base - 0.5
+    out = out + _SH_C1 * (-y * sh[:, 0] + z * sh[:, 1] - x * sh[:, 2])
+    if deg >= 2:
+        xx, yy, zz = x * x, y * y, z * z
+        xy, yz, xz = x * y, y * z, x * z
+        out = out + (_SH_C2[0] * xy * sh[:, 3]
+                     + _SH_C2[1] * yz * sh[:, 4]
+                     + _SH_C2[2] * (2.0 * zz - xx - yy) * sh[:, 5]
+                     + _SH_C2[3] * xz * sh[:, 6]
+                     + _SH_C2[4] * (xx - yy) * sh[:, 7])
+    if deg >= 3:
+        out = out + (_SH_C3[0] * y * (3 * xx - yy) * sh[:, 8]
+                     + _SH_C3[1] * xy * z * sh[:, 9]
+                     + _SH_C3[2] * y * (4 * zz - xx - yy) * sh[:, 10]
+                     + _SH_C3[3] * z * (2 * zz - 3 * xx - 3 * yy) * sh[:, 11]
+                     + _SH_C3[4] * x * (4 * zz - xx - yy) * sh[:, 12]
+                     + _SH_C3[5] * z * (xx - yy) * sh[:, 13]
+                     + _SH_C3[6] * x * (xx - 3 * yy) * sh[:, 14])
+    return torch.clamp(out + 0.5, 0.0, 1.0)
+
+
+def _sigmoid(x):
+    return 1.0 / (1.0 + np.exp(-x))
+
+
+def load_ply(path: str, device="cuda") -> GaussianCloud:
+    """Load a 3DGS PLY (binary_little_endian or ascii) onto ``device``.
+    Activations applied in numpy: exp() on log-scales, sigmoid() on
+    opacity logits, SH-DC to RGB; ``f_rest_*`` (sorted by their integer
+    suffix, stored channel-major) become ``sh_rest`` (N, B, 3)."""
+    props, data = _read_ply_vertices(path)
+    cols = {name: data[:, i] for i, name in enumerate(props)}
+    missing = [p for p in _PLY_PROPS if p not in cols]
+    if missing:
+        raise ValueError(f"PLY {path} missing 3DGS properties: {missing}")
+    means = np.stack([cols["x"], cols["y"], cols["z"]], -1)
+    colors = np.clip(0.5 + SH_C0 * np.stack(
+        [cols["f_dc_0"], cols["f_dc_1"], cols["f_dc_2"]], -1), 0.0, 1.0)
+    opac = _sigmoid(cols["opacity"])
+    scales = np.exp(np.stack(
+        [cols["scale_0"], cols["scale_1"], cols["scale_2"]], -1))
+    quats = np.stack([cols["rot_0"], cols["rot_1"], cols["rot_2"],
+                      cols["rot_3"]], -1)
+    quats /= np.maximum(np.linalg.norm(quats, axis=1, keepdims=True), 1e-12)
+    rest_names = sorted((p for p in props if p.startswith("f_rest_")),
+                        key=lambda s: int(s.split("_")[-1]))
+    sh_rest = None
+    if rest_names:
+        rest = np.stack([cols[p] for p in rest_names], -1)   # (N, 3*B)
+        b = rest.shape[1] // 3
+        sh_rest = rest.reshape(-1, 3, b).transpose(0, 2, 1)  # (N, B, 3)
+    return gaussian_cloud(means, scales, quats, opac, colors, sh_rest,
+                          device=device)
+
+
+def save_ply(path: str, cloud: GaussianCloud) -> None:
+    """Write a 3DGS PLY (binary little-endian) with inverse activations,
+    in the INRIA exporter's property order: x, y, z, nx, ny, nz
+    (zero-filled normals), f_dc, f_rest, opacity, scale, rot."""
+    def host(t):
+        return t.detach().cpu().numpy().astype(np.float32)
+    means = host(cloud.means)
+    colors = host(cloud.colors)
+    opac = np.clip(host(cloud.opacities), 1e-6, 1 - 1e-6)
+    scales = np.maximum(host(cloud.scales), 1e-12)
+    quats = host(cloud.quats)
+    f_dc = (colors - 0.5) / SH_C0
+    logit = np.log(opac / (1 - opac))
+    normals = np.zeros_like(means)
+    parts = [means, normals, f_dc]
+    props = ["x", "y", "z", "nx", "ny", "nz", "f_dc_0", "f_dc_1", "f_dc_2"]
+    if cloud.sh_rest is not None:
+        rest = host(cloud.sh_rest)                              # (N, B, 3)
+        b = rest.shape[1]
+        parts.append(rest.transpose(0, 2, 1).reshape(len(means), -1))
+        props += [f"f_rest_{i}" for i in range(3 * b)]
+    parts += [logit[:, None], np.log(scales), quats]
+    props += ["opacity", "scale_0", "scale_1", "scale_2",
+              "rot_0", "rot_1", "rot_2", "rot_3"]
+    rec = np.concatenate(parts, -1).astype("<f4")
+    header = ["ply", "format binary_little_endian 1.0",
+              f"element vertex {len(rec)}"]
+    header += [f"property float {p}" for p in props]
+    header += ["end_header", ""]
+    with open(path, "wb") as f:
+        f.write("\n".join(header).encode("ascii"))
+        f.write(rec.tobytes())
+
+
+def _read_ply_vertices(path: str):
+    """PLY vertex reader, float32 properties only (what 3DGS exports use):
+    (property names, (N, P) float32). Elements after the vertices (e.g.
+    ``element face 0``) are ignored."""
+    with open(path, "rb") as f:
+        props: list[str] = []
+        n = 0
+        fmt = None
+        in_vertex = False
+        while True:
+            line = f.readline().decode("ascii", "replace").strip()
+            if line.startswith("format"):
+                fmt = line.split()[1]
+            elif line.startswith("element vertex"):
+                n = int(line.split()[-1])
+                in_vertex = True
+            elif line.startswith("element"):
+                in_vertex = False
+            elif line.startswith("property") and in_vertex:
+                kind, name = line.split()[1], line.split()[-1]
+                if kind != "float":
+                    raise ValueError(f"non-float property {name}")
+                props.append(name)
+            elif line == "end_header":
+                break
+            elif line == "":
+                raise ValueError("unexpected EOF in PLY header")
+        if fmt == "binary_little_endian":
+            data = np.frombuffer(f.read(4 * n * len(props)), "<f4")
+            data = data.reshape(n, len(props)).astype(np.float32)
+        elif fmt == "ascii":
+            data = np.loadtxt(f, dtype=np.float32, max_rows=n)
+            data = data.reshape(n, len(props))
+        else:
+            raise ValueError(f"unsupported PLY format {fmt}")
+    return props, data

@@ -43,7 +43,7 @@ def run(args) -> dict:
     "triangles", "fb" (the last framebuffer), "png"}."""
     sc = scene("multipass", args.device, args.width, args.height,
                grid=args.grid)
-    ms, fb = frame_loop(sc.frame, args.frames, args.device)
+    ms, fb, _ = frame_loop(sc.frame, args.frames, args.device)
     os.makedirs(args.out, exist_ok=True)
     png = os.path.join(args.out, "frame_last.png")
     if fb is not None:

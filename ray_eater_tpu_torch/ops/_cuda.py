@@ -27,7 +27,7 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent.parent
 _SOURCES = tuple(_PKG / "csrc" / f for f in (
     "gs_project.cu", "gs_composite.cu", "gs_composite_bwd.cu", "raster.cu",
-    "sampling.cu"))
+    "sampling.cu", "splat.cu"))
 _BUILD = _PKG / "_build"
 _ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 _FLAGS = (*_ARCH, "-std=c++17", "-O3", "--fmad=false", "-Xcompiler", "-fPIC")
@@ -37,7 +37,8 @@ _lib = None
 #: kernel launches per wrapper, counted where the wrapper launches
 launches = {"k1_project": 0, "k2_composite": 0, "k3_composite_tail": 0,
             "k4_composite_ckpt": 0, "k5_composite_bwd": 0, "k6_raster": 0,
-            "k7_raster_binned": 0, "k8_shade_fetch": 0, "k9_subtile": 0}
+            "k7_raster_binned": 0, "k8_shade_fetch": 0, "k9_subtile": 0,
+            "k10_splat": 0}
 
 
 def reset_launches() -> None:
@@ -123,6 +124,8 @@ def lib() -> ctypes.CDLL:
         so.shade_fetch.restype = i
         so.subtile_sample.argtypes = [p] * 13 + [i, p]
         so.subtile_sample.restype = i
+        so.splat_mask.argtypes = [p, i, i, i, i, i, i, p, p]
+        so.splat_mask.restype = i
         _lib = so
     return _lib
 

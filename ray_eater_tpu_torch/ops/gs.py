@@ -41,6 +41,7 @@ Not ported yet (``render_gaussians`` raises ``NotImplementedError``): the
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import NamedTuple
 
@@ -48,6 +49,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..models.gaussians import eval_sh_colors
 from ..utils import pad_to as _pad_to
 from . import _cuda
 
@@ -1293,10 +1295,12 @@ def render_gaussians(cloud, view, proj, width: int, height: int,
     (``big_splat_cap``, ``mid_splat_cap``, ``mid_lo_splat_cap``,
     ``corner_cap``; see :func:`_bin_splats`) and the decimated tail
     (``lod_tail_decim`` pairs per tile at ``lod_tail_d``, default
-    ``_TAIL_D``). ``payload_sort``, ``lod_seg`` and ``interpret`` do not
+    ``_TAIL_D``) and view-dependent SH colours (``cam_pos`` with a cloud
+    that has ``sh_rest``, evaluated by ``eval_sh_colors`` before the
+    projection). ``payload_sort``, ``lod_seg`` and ``interpret`` do not
     change the output and are ignored; ``exact_seg`` only rounds the
-    exact-mode pair cap, as in the JAX layout. ``lod_tail`` and SH colours
-    (``cam_pos`` with ``sh_rest``) raise ``NotImplementedError``.
+    exact-mode pair cap, as in the JAX layout. ``lod_tail`` raises
+    ``NotImplementedError``.
 
     ``return_stats=True`` also returns ``overflow_pairs`` (pairs dropped
     behind the head, or behind the tail when there is one),
@@ -1310,13 +1314,12 @@ def render_gaussians(cloud, view, proj, width: int, height: int,
         raise ValueError("mid_lo_splat_cap requires mid_splat_cap")
     if lod_tail_decim is not None and max_splats_per_tile is None:
         raise ValueError("lod_tail_decim requires max_splats_per_tile")
-    unported = {"lod_tail": bool(lod_tail),
-                "cam_pos with sh_rest": (cam_pos is not None
-                                         and cloud.sh_rest is not None)}
-    for name, on in unported.items():
-        if on:
-            raise NotImplementedError(f"{name} is not ported yet")
+    if lod_tail:
+        raise NotImplementedError("lod_tail is not ported yet")
     tail_d = _TAIL_D if lod_tail_d is None else lod_tail_d
+    if cam_pos is not None and cloud.sh_rest is not None:
+        cloud = dataclasses.replace(cloud,
+                                    colors=eval_sh_colors(cloud, cam_pos))
 
     lay = _frame_layout(cloud, view, proj, width, height,
                         pairs_cap_factor=pairs_cap_factor, ky=ky,
@@ -1415,6 +1418,18 @@ def render_gaussians_diff(means, scales, quats, opacities, colors,
     img = finalize_planes(planes, b.visited, lay.nty, lay.ntx, background,
                           tile_w)
     return img[:height, :width]
+
+
+def initial_lod_budget(width: int, height: int, tile_w: int,
+                       max_splats_per_tile: int, device):
+    """The first frame's (ntiles, 2) int32 LOD budget of a temporal
+    window: ``max_splats_per_tile`` a tile and no dry need; later frames
+    take :func:`update_lod_budget` of the frame before."""
+    ntx, nty = num_tiles(width, height, tile_w)
+    return torch.stack([
+        torch.full((ntx * nty,), max_splats_per_tile, dtype=_I32,
+                   device=device),
+        torch.zeros(ntx * nty, dtype=_I32, device=device)], -1)
 
 
 def update_lod_budget(tile_exec, max_splats_per_tile: int,

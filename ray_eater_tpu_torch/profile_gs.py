@@ -1,8 +1,8 @@
 """Where the time of one flythrough frame, one training step, or one
 raster frame goes on a CUDA device.
 
-    python3 -m ray_eater_tpu_torch.profile_gs [--scene fog|inria|train|
-        basic_planes|multipass|grid10k] [--frames 5]
+    python3 -m ray_eater_tpu_torch.profile_gs [--scene fog|inria|sh|train|
+        basic_planes|multipass|grid10k|compute_drawing] [--frames 5]
 
 ``fog``/``inria`` render a bench scene (1M splats, 1920x1080, the scene's
 knobs) through the port's ``render_gaussians``: a few warm LOD frames (with
@@ -14,7 +14,11 @@ configuration (1M splats at 1920x1080, mpt 256, tile_w 128, Adam lr 5e-3;
 at t = 0.5 of ``raster_scenes.scene``: ``basic_planes`` (900x600),
 ``multipass`` (1920x1080, prepass + lit pass) and ``grid10k`` (the
 10,082-triangle grid of ``tools/profile_raster.py`` at 1920x1080,
-mip-sampled).
+mip-sampled); ``compute_drawing`` one frame of that sample (900x600, the
+splatted image on a quad). ``sh`` profiles the ``gs_viewer`` frame at its
+defaults on the fog cloud with 15 SH bands from ``RandomState(1)`` (the
+SH path of ``chip_smoke.py``) at t = 0.5, its budgets warmed over 8
+frames, and ``eval_sh_colors`` alone.
 Prints, per mode, the CUDA-event
 time per frame (or step), the summed device time per frame of the top
 kernels by name, the number of kernel launches per frame and the device
@@ -58,8 +62,9 @@ def _profile(torch, frame, frames: int):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--scene", choices=("fog", "inria", "train",
-                                        *RASTER_SCENES), default="fog")
+    ap.add_argument("--scene", choices=("fog", "inria", "sh", "train",
+                                        "compute_drawing", *RASTER_SCENES),
+                    default="fog")
     ap.add_argument("--frames", type=int, default=5)
     ap.add_argument("--top", type=int, default=25)
     args = ap.parse_args(argv)
@@ -74,8 +79,14 @@ def main(argv=None) -> int:
         modes = {"train step": _train_step(W, H, n, dev)}
     elif args.scene in RASTER_SCENES:
         modes = {f"{args.scene} frame": _raster_frame(args.scene, dev)}
+    elif args.scene == "compute_drawing":
+        from .compute_drawing import setup
+        drawing = setup(dev)
+        modes = {"compute_drawing frame": lambda: drawing.frame(0.5)}
+    elif args.scene == "sh":
+        modes = _sh_modes(n, dev)
     else:
-        modes = _render_modes(torch, args.scene, W, H, n, dev)
+        modes = _render_modes(args.scene, W, H, n, dev)
     for name, frame in modes.items():
         ms, rows = _profile(torch, frame, args.frames)
         busy = sum(r[0] for r in rows)
@@ -99,6 +110,23 @@ def _raster_frame(scene, dev):
     return lambda: sc.frame(0.5)
 
 
+def _sh_modes(n, dev):
+    """The gs_viewer frame (defaults, SH colours) and eval_sh_colors alone
+    on the synthetic cloud with 15 SH bands, budgets warmed over 8
+    frames."""
+    from .gs_viewer import parse_args, synthetic_cloud, viewer
+    from .models.gaussians import eval_sh_colors
+    cloud = synthetic_cloud(n, 15, dev)
+    v = viewer(parse_args([]), cloud)
+    budget = v.initial_budget()
+    for _ in range(8):
+        _, st = v.frame(0.5, budget)
+        budget = v.next_budget(st, budget)
+    eye = v.camera(0.5)[2]
+    return {"sh LOD": lambda: v.frame(0.5, budget),
+            "eval_sh_colors": lambda: eval_sh_colors(cloud, eye)}
+
+
 def _train_step(W, H, n, dev):
     """One training step of the trainer's plain run, as a closure."""
     from .gs_trainer import train_setup
@@ -108,7 +136,7 @@ def _train_step(W, H, n, dev):
     return lambda: step(params, target)
 
 
-def _render_modes(torch, scene, W, H, n, dev):
+def _render_modes(scene, W, H, n, dev):
     """The LOD and exact frame closures of a flythrough scene, its temporal
     budgets (if any) warmed over 8 frames."""
     from .bench_knobs import flythrough_camera, render_kwargs, resolve_knobs
@@ -127,10 +155,7 @@ def _render_modes(torch, scene, W, H, n, dev):
     view, proj = flythrough_camera(0.5, W, H, device=dev)
     budget = None
     if knobs["temporal"]:     # warm the temporal budgets over 8 frames
-        budget = torch.stack([torch.full((ntx * nty,), mpt,
-                                         dtype=torch.int32, device=dev),
-                              torch.zeros(ntx * nty, dtype=torch.int32,
-                                          device=dev)], -1)
+        budget = gs.initial_lod_budget(W, H, tile_w, mpt, dev)
         for _ in range(8):
             _, st = gs.render_gaussians(cloud, view, proj, W, H,
                                         lod_budget=budget, **kw_meas)

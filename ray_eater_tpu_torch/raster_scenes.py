@@ -207,21 +207,23 @@ def scene(name: str, device="cuda", width: int | None = None,
 
 def frame_loop(render, frames: int, device):
     """Render one warm-up frame, then ``frames`` frames at t = i/60 by
-    ``render(t)``. Returns (ms per frame, the last frame's result): CUDA
-    events on a CUDA device, the host clock on the CPU."""
+    ``render(t)``. Returns (ms per frame, the last frame's result, host ms
+    per frame): the first by CUDA events on a CUDA device and by the host
+    clock on the CPU; the host clock runs from the first timed frame to
+    the end of the last."""
     render(0.0)
     last = None
-    if torch.device(device).type == "cuda":
+    cuda = torch.device(device).type == "cuda"
+    if cuda:
         torch.cuda.synchronize(device)
         e0 = torch.cuda.Event(enable_timing=True)
         e1 = torch.cuda.Event(enable_timing=True)
         e0.record()
-        for i in range(frames):
-            last = render(float(np.float32(i / 60.0)))
-        e1.record()
-        e1.synchronize()
-        return e0.elapsed_time(e1) / max(frames, 1), last
     t0 = time.perf_counter()
     for i in range(frames):
         last = render(float(np.float32(i / 60.0)))
-    return (time.perf_counter() - t0) * 1e3 / max(frames, 1), last
+    if cuda:
+        e1.record()
+        e1.synchronize()
+    host = (time.perf_counter() - t0) * 1e3 / max(frames, 1)
+    return (e0.elapsed_time(e1) / max(frames, 1) if cuda else host), last, host

@@ -55,9 +55,7 @@ def main(argv=None) -> int:
     else:
         cloud = gaussians.random_cloud(n, seed=1, extent=1.0,
                                        scale_range=(0.004, 0.02), device=dev)
-    budget0 = torch.stack([
-        torch.full((ntx * nty,), mpt, dtype=torch.int32, device=dev),
-        torch.zeros(ntx * nty, dtype=torch.int32, device=dev)], -1)
+    budget0 = gs.initial_lod_budget(W, H, knobs["tile_w"], mpt, dev)
 
     def window(frames: int):
         budget = budget0

@@ -1,5 +1,7 @@
-"""K1–K9 on a CUDA device against their plain PyTorch versions, one
-training step through K4 and K5, and raster frames through K6–K9.
+"""K1–K10 on a CUDA device against their plain PyTorch versions, one
+training step through K4 and K5, raster frames through K6–K9, the
+compute_drawing sample through K10 and K6, and SH colours through the
+gs_viewer entry point.
 
 Marked ``gpu``: each test decides inside itself whether a CUDA device is
 present and skips when there is none. Run on a GPU machine with
@@ -13,7 +15,8 @@ cumprod), exec equal on ≥ 99.9% of tiles; K5 within 1e-4 × the plain
 version's largest |gradient| (reassociated sums, shared-memory atomics in
 no fixed order); K6 and K7 winner ids equal and λ0/λ1/depth within 1e-6
 where they agree (the same operations in the same order, --fmad=false),
-K8 equal, K9 within 1e-6.
+K8 equal, K9 within 1e-6, K10 equal; SH colours on CUDA within 1e-6 of
+the CPU's (the direction's norm and the products may round differently).
 """
 
 import numpy as np
@@ -30,7 +33,8 @@ pytestmark = pytest.mark.gpu
 W, H = 480, 270
 NO_LAUNCHES = {"k1_project": 0, "k2_composite": 0, "k3_composite_tail": 0,
                "k4_composite_ckpt": 0, "k5_composite_bwd": 0, "k6_raster": 0,
-               "k7_raster_binned": 0, "k8_shade_fetch": 0, "k9_subtile": 0}
+               "k7_raster_binned": 0, "k8_shade_fetch": 0, "k9_subtile": 0,
+               "k10_splat": 0}
 
 
 def _cuda():
@@ -308,3 +312,65 @@ def test_raster_frames_count_launches():
     assert kernels.launches == dict(NO_LAUNCHES, k7_raster_binned=1,
                                   k8_shade_fetch=1, k9_subtile=1)
     assert bool(torch.isfinite(fb.color).all())
+
+
+# ---- particle splat: K10; SH colours ----------------------------------------
+
+@pytest.mark.parametrize("h,w,n,r", [(64, 128, 200, 10), (600, 900, 1024, 20),
+                                     (97, 301, 3000, 3)])
+def test_k10_matches_plain(h, w, n, r):
+    from ray_eater_tpu_torch.ops import splat
+    dev = _cuda()
+    rng = np.random.RandomState(n)
+    # over [-2r, w + 2r) x [-2r, h + 2r): clamped, off-image and empty boxes
+    pos = np.stack([rng.rand(n) * (w + 4 * r) - 2 * r,
+                    rng.rand(n) * (h + 4 * r) - 2 * r], -1).astype(np.float32)
+    pos[:4] = [[5, -2 * r - 5], [-2 * r - 5, 5], [-r, -r], [w + r, h + r]]
+    p = torch.from_numpy(pos).to(dev)
+    k = splat._splat_k10(p, h, w, r)
+    assert torch.equal(k, splat._splat_plain(p, h, w, r))
+    assert torch.equal(k.cpu(), splat._splat_plain(p.cpu(), h, w, r))
+    assert 0 < float(k.mean()) < 1
+
+
+def test_compute_drawing_counts_launches(tmp_path):
+    from ray_eater_tpu_torch import compute_drawing
+    from ray_eater_tpu_torch.core.swapchain import encode_present
+    from ray_eater_tpu_torch.ops import _cuda as kernels
+    _cuda()
+    kernels.reset_launches()
+    r = compute_drawing.run(compute_drawing.parse_args(
+        ["--frames", "2", "--out", str(tmp_path)]))
+    assert kernels.launches == dict(NO_LAUNCHES, k10_splat=1, k6_raster=3)
+    img = r["drawing"].image
+    assert torch.equal(r["u8"], encode_present(img, img.shape[1],
+                                               img.shape[0], srgb=False))
+
+
+def test_sh_colors_match_cpu_and_viewer_counts_launches(tmp_path):
+    from ray_eater_tpu_torch import gs_viewer
+    from ray_eater_tpu_torch.models.gaussians import eval_sh_colors, save_ply
+    from ray_eater_tpu_torch.ops import _cuda as kernels
+    dev = _cuda()
+    cloud = gs_viewer.synthetic_cloud(20_000, 15, dev)
+    eye = torch.tensor([2.0, 0.8, 1.0], device=dev)
+    cpu = gs_viewer.synthetic_cloud(20_000, 15, "cpu")
+    got = eval_sh_colors(cloud, eye)
+    # one CPU thread: PyTorch's first multithreaded CPU sqrt of a process
+    # can come out approximate (ROADMAP queue 3)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        want = eval_sh_colors(cpu, eye.cpu())
+    finally:
+        torch.set_num_threads(threads)
+    assert float((got.cpu() - want).abs().max()) <= 1e-6
+    ply = str(tmp_path / "sh.ply")
+    save_ply(ply, cloud)
+    kernels.reset_launches()
+    r = gs_viewer.run(gs_viewer.parse_args(
+        ["--ply", ply, "--frames", "2", "--width", str(W), "--height",
+         str(H), "--out", str(tmp_path)]))
+    assert kernels.launches == dict(NO_LAUNCHES, k1_project=3,
+                                    k2_composite=3)
+    assert bool(torch.isfinite(r["image"]).all())

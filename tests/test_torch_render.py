@@ -223,12 +223,20 @@ def test_ported_knobs_match_jax(kw):
 
 
 def test_sh_colors_raise_and_knob_errors_match_jax():
+    # SH colours no longer raise: with cam_pos, a cloud with sh_rest renders
+    # with the colours eval_sh_colors gives for that eye (the JAX order);
+    # the knob errors still raise as in JAX
     view, proj = (np.asarray(m) for m in _camera(256, 96))
     n = CLOUD.num_splats
-    sh = gaussians.cloud_from_numpy(
-        dict(D, sh_rest=np.zeros((n, 3, 3), np.float32)), device="cpu")
-    with pytest.raises(NotImplementedError):
-        gs.render_gaussians(sh, view, proj, 256, 96, cam_pos=(0, 0, -3.0))
+    rest = np.random.RandomState(3).randn(n, 3, 3).astype(np.float32) * 0.1
+    sh = gaussians.cloud_from_numpy(dict(D, sh_rest=rest), device="cpu")
+    eye = (0.0, 0.0, -3.0)
+    img = gs.render_gaussians(sh, view, proj, 256, 96, cam_pos=eye)
+    want = gs.render_gaussians(gaussians.cloud_from_numpy(
+        dict(D, colors=gaussians.eval_sh_colors(sh, eye).numpy()),
+        device="cpu"), view, proj, 256, 96)
+    torch.testing.assert_close(img, want, rtol=0, atol=0)
+    assert not torch.equal(img, gs.render_gaussians(sh, view, proj, 256, 96))
     for kw in (dict(mid_splat_cap=16), dict(lod_tail_decim=64)):
         with pytest.raises(ValueError):
             gs.render_gaussians(CLOUD, view, proj, 256, 96, **kw)
