@@ -10,7 +10,8 @@ kernel against its plain PyTorch version, and drives the port's main paths:
 
 * the fog flythrough (1M splats, 1920x1080, temporal LOD budgets) through
   ``render_gaussians``, checked against exact-mode frames with the PSNR gate
-  of ``bench.py``: K1, K2;
+  of ``bench.py``: K1, K2 (K2 is also checked on the training frame's
+  layout at tile_w 128);
 * the inria flythrough (1M splats, 1920x1080, side channels, corner fan,
   decimated tail, no temporal budgets), gated the same way: K1, K2 and K3;
 * training: ``gs_trainer.train`` (``make_train_step_pallas``, 1M splats at
@@ -79,7 +80,7 @@ SMALL_EDGE_SHARE = 1e-4
 SMALL_MEAN_ABS = 1e-5
 MIN_PSNR = 30.0        # LOD frame vs exact frame, worst sampled frame
 # K5 vs its plain version, relative to the plain version's largest
-# |gradient|: reassociated sums, shared-memory atomics in no fixed order
+# |gradient|: reassociated sums, global atomics in no fixed order
 K5_REL = 1e-4
 # GPU vs CPU gradients of one small render_gaussians_diff, relative to
 # the largest |gradient| of the CPU run: the plain projection's radii and
@@ -93,6 +94,13 @@ ADC_ARGS = ["--adc", "--splats", "16384", "--capacity", "65536", "--views",
 # H100 SXM peaks (NVIDIA data sheet, at 700 W): HBM bytes/s, f32 FLOP/s
 HBM_BPS = 3.35e12
 F32_FLOPS = 67e12
+# expf per second: its MUFU.EX2 runs 16 a clock per SM on Hopper (NVIDIA's
+# CUDA C++ documentation, arithmetic instruction throughput, compute
+# capability 9.0), 132 SMs at the H100 SXM's 1.98 GHz boost clock. The
+# composites' SFU term counts one expf per executed pair-sample whose
+# alpha can reach 1/255 (power not below the cull threshold, pair_counts):
+# the others contribute nothing, so the function needs no expf for them
+SFU_EXP_PER_S = 132 * 16 * 1.98e9
 K1_OPS_PER_SPLAT = 280   # f32 ops of _cov3d_math + _project_math (source)
 K2_OPS_PER_PAIR_PIXEL = 13   # ~12 flops + one expf per executed pair-pixel
 # K5's operations per executed pair-sample, counted from gs_composite_bwd.cu
@@ -175,20 +183,27 @@ def f32(x) -> float:
 
 def kernel_record(torch, name: str, source: str, replaces: str, call, plain,
                   args, max_abs: float, nbytes: int, ops: int, label: str,
-                  reps: int, plain_reps: int = 2):
+                  reps: int, plain_reps: int = 2, exps: int = 0):
     """Times the kernel's wrapper ``call`` and its plain version on
     ``args`` by CUDA events and returns its record of the kernels line; the
-    bound is the larger of ``nbytes`` over the HBM rate and ``ops`` over
-    the f32 rate."""
+    bound is the largest of ``nbytes`` over the HBM rate, ``ops`` over the
+    f32 rate and ``exps`` (the expf calls the function needs) over the
+    SFU's rate. ``bound_by``
+    names bytes or operations; the log line says whether the operations
+    term was the f32 or the SFU one."""
     ms = time_ms(torch, lambda: call(*args), reps)
     plain_ms = time_ms(torch, lambda: plain(*args), plain_reps, warm=1)
-    t_bytes, t_ops = nbytes / HBM_BPS * 1e3, ops / F32_FLOPS * 1e3
+    terms = {"bytes": nbytes / HBM_BPS * 1e3, "f32": ops / F32_FLOPS * 1e3,
+             "sfu": exps / SFU_EXP_PER_S * 1e3}
+    by = max(terms, key=terms.get)
     log(f"{name} [{label}] time {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
-        f"{max(t_bytes, t_ops):.4f} ms ({nbytes} B, {ops} ops)")
+        f"{terms[by]:.4f} ms by {by} ({nbytes} B: {terms['bytes']:.4f} ms; "
+        f"{ops} f32 ops: {terms['f32']:.4f} ms; {exps} expf: "
+        f"{terms['sfu']:.4f} ms)")
     return dict(name=name, route="cuda", source=source, replaces=replaces,
                 max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
-                bound_ms=max(t_bytes, t_ops),
-                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                bound_ms=terms[by],
+                bound_by="bytes" if by == "bytes" else "operations",
                 library_ms=None)
 
 
@@ -224,13 +239,56 @@ def check_k1(torch, gs, cloud, view, proj, label: str, max_radius: int):
         n * K1_OPS_PER_SPLAT, label, reps=50, plain_reps=10)
 
 
-def check_composite(torch, name: str, replaces: str, call, plain, args,
-                    tiles, entry_planes: int, label: str, reps: int):
+def pair_counts(torch, gs, records, row_begin, exec_, geom, foot=None):
+    """Counts over a composite's executed pair-samples: every executed row
+    of a tile against each of its samples, ``geom`` = (ntx, nty, tile_w,
+    decim). ``pairs``; ``reach``, those whose power is not below
+    ``gs._cull_threshold`` of the row's opacity, the only ones whose alpha
+    can reach the 1/255 floor, so the only expf the function needs;
+    ``live``, those whose alpha reaches it (``lost`` counts live pairs
+    outside ``reach``: 0 where the cull is exact); ``unclamped``, the live
+    ones below the 0.99 clamp. With ``foot`` (columns, rows of K2's warp
+    footprint): ``warp_rows``, the (warp, executed row) pairs, and
+    ``culled``, those where no sample of the warp reaches, which K2's warp
+    row cull skips."""
+    ntx, nty, tile_w, decim = geom
+    px, py = gs._tile_samples(ntx, nty, tile_w, decim, records.device)
+    begin, ex = row_begin.long(), exec_.long()
+    pairs = warp_rows = 0
+    counts = torch.zeros(5, dtype=torch.int64, device=records.device)
+    for r in range(int(ex.max())):        # the r-th executed row of each tile
+        t = torch.nonzero(ex > r).flatten()
+        rec = records[begin[t] + r]
+        dx, dy = px[t] - rec[:, 0:1], py[t] - rec[:, 1:2]
+        power = (-0.5 * (rec[:, 2:3] * dx * dx + rec[:, 4:5] * dy * dy)
+                 - rec[:, 3:4] * dx * dy)
+        reach = ~(power < gs._cull_threshold(rec[:, 5:6]))
+        araw = rec[:, 5:6] * torch.exp(power)
+        live = araw >= gs._ALPHA_MIN
+        culled = torch.zeros((), dtype=torch.int64, device=records.device)
+        if foot is not None:
+            fw, fh = foot
+            warp = reach.reshape(-1, 32 // fh, fh, tile_w // fw, fw)
+            warp = warp.any(4).any(2)
+            culled, warp_rows = (~warp).sum(), warp_rows + warp.numel()
+        pairs += power.numel()
+        counts += torch.stack([reach.sum(), live.sum(), (live & ~reach).sum(),
+                               (live & (araw < gs._ALPHA_MAX)).sum(), culled])
+    c = dict(zip(("reach", "live", "lost", "unclamped", "culled"),
+                 map(int, counts)))
+    return dict(c, pairs=pairs, warp_rows=warp_rows)
+
+
+def check_composite(torch, gs, name: str, replaces: str, call, plain, args,
+                    geom, tiles, entry_planes: int, label: str, reps: int,
+                    foot=None):
     """A composite kernel (K2 or K3) vs its plain version on one frame's
-    packed records and row ranges (``args``): planes compared on the
-    ``tiles`` mask, exec counts on every tile, then both timed.
-    ``entry_planes`` counts the (ntiles, pix) planes the kernel reads
-    besides the records (K3's entry T) for the bound."""
+    packed records and row ranges (``args``, sample grid ``geom`` as in
+    :func:`pair_counts`): planes compared on the ``tiles`` mask, exec
+    counts on every tile, then both timed. ``entry_planes`` counts the
+    (ntiles, pix) planes the kernel reads besides the records (K3's entry
+    T) for the bound; with K2's ``foot``, the share of (warp, row) pairs
+    its warp row cull skips is logged."""
     pk, ek = call(*args)
     pp, ep = plain(*args)
     torch.cuda.synchronize()
@@ -242,34 +300,48 @@ def check_composite(torch, name: str, replaces: str, call, plain, args,
     executed = int(ek.sum())
     with_rows = args[2] > args[1]
     skipped = int((with_rows & (ek == 0)).sum())
+    cnt = pair_counts(torch, gs, args[0], args[1], ek, geom, foot)
     log(f"{name} vs plain [{label}]: {ntiles} tiles x {pix} samples, "
         f"{int(with_rows.sum())} with rows ({skipped} skipped at entry), "
         f"{int(tiles.sum())} compared, "
         f"{args[0].shape[0]} packed rows, {executed} executed (longest tile "
         f"{int(ek.max())}); planes max abs {max_abs:.3e} mean abs "
-        f"{mean_abs:.3e}; exec equal on {same * 100:.3f}% of tiles")
+        f"{mean_abs:.3e}; exec equal on {same * 100:.3f}% of tiles; "
+        f"{cnt['reach']} of {cnt['pairs']} executed pair-samples can reach "
+        f"the alpha floor ({cnt['live']} do, {cnt['lost']} beyond the cull "
+        f"threshold)")
+    if foot is not None:
+        log(f"{name} [{label}]: the warp row cull skips "
+            f"{cnt['culled'] / max(cnt['warp_rows'], 1) * 100:.2f}% of the "
+            f"(warp, executed row) pairs (footprint {foot[0]} columns x "
+            f"{foot[1]} rows)")
     require(max_abs <= COMP_MAX_ABS and mean_abs <= COMP_MEAN_ABS,
             f"{name} [{label}] planes differ: max {max_abs} mean {mean_abs}")
     require(same >= COMP_EXEC_SHARE, f"{name} [{label}] exec equal on {same}")
+    require(cnt["lost"] == 0, f"{name} [{label}] {cnt['lost']} pair-samples "
+            "reach the alpha floor below the cull threshold")
     # rows read once, row ranges read, entry planes read, 4 planes written
     return kernel_record(
         torch, name, "ray_eater_tpu_torch/csrc/gs_composite.cu", replaces,
         call, plain, args, max_abs,
         executed * REC_BYTES + ntiles * (2 * 4 + 4)
         + (4 + entry_planes) * ntiles * pix * 4,
-        executed * pix * K2_OPS_PER_PAIR_PIXEL, label, reps)
+        executed * pix * K2_OPS_PER_PAIR_PIXEL, label, reps,
+        exps=cnt["reach"])
 
 
 def check_k2(torch, gs, lay, label: str, reps: int):
-    """K2 vs its plain version on one frame's head layout."""
+    """K2 vs its plain version on one frame's head layout, and the share of
+    (warp, row) pairs its warp row cull skipped."""
     b = lay.binned
     log(f"K2 [{label}]: {int(b.visited.sum())} visited tiles, "
         f"{int(b.kept.sum())} pairs kept")
     return check_composite(
-        torch, "K2 composite", "ray_eater_tpu/ops/gs.py:1239",
+        torch, gs, "K2 composite", "ray_eater_tpu/ops/gs.py:1239",
         gs._composite_call, gs._composite_plain,
         (lay.records, b.row_begin, b.row_end, lay.ntx, lay.nty, lay.tile_w),
-        b.visited, 0, label, reps)
+        (lay.ntx, lay.nty, lay.tile_w, 1), b.visited, 0, label, reps,
+        foot=gs._composite_footprint(lay.tile_w))
 
 
 def check_k3(torch, gs, lay, decim: int, label: str, reps: int):
@@ -282,10 +354,10 @@ def check_k3(torch, gs, lay, decim: int, label: str, reps: int):
     log(f"K3 [{label}]: decim {decim}, {int(b.kept_tl.sum())} tail pairs "
         f"granted")
     return check_composite(
-        torch, "K3 tail composite", "ray_eater_tpu/ops/gs.py:1416",
+        torch, gs, "K3 tail composite", "ray_eater_tpu/ops/gs.py:1416",
         gs._composite_tail_call, gs._composite_tail_plain,
         (lay.records_tl, b.row_begin_tl, b.row_end_tl, td, lay.ntx, lay.nty,
-         lay.tile_w, decim),
+         lay.tile_w, decim), (lay.ntx, lay.nty, lay.tile_w, decim),
         torch.ones_like(b.visited), 1, label, reps)
 
 
@@ -447,28 +519,6 @@ def main_path(torch, cuda, scene: str, frames):
     return launches
 
 
-def train_frame(torch, gs, tr, gs_trainer, dev, n, w, h):
-    """The trainer's first step, taken apart: the hidden scene's target
-    (seed 42), the init cloud's (seed 7) packed training layout, K4's
-    outputs on it and the cotangent of the MSE loss on K4's planes."""
-    view, proj, target, params = gs_trainer.train_setup(n, w, h, dev)
-    with torch.no_grad():
-        c = tr.cloud_from_params(params)
-        lay = gs._diff_layout(c.means, c.scales, c.quats, c.opacities,
-                              c.colors, view, proj, w, h)
-    b = lay.binned
-    args = (lay.records, b.row_begin, b.row_end, lay.ntx, lay.nty,
-            lay.tile_w)
-    planes, ex, ck, off = gs._composite_call_ckpt(*args)
-    leaf = planes.clone().requires_grad_(True)
-    img = gs.finalize_planes(leaf, b.visited, lay.nty, lay.ntx,
-                             (0.0, 0.0, 0.0), lay.tile_w)[:h, :w]
-    loss = torch.mean((img - target) ** 2)
-    loss.backward()
-    return lay, args, (planes, ex, ck, off), leaf.grad.contiguous(), \
-        loss.item()
-
-
 def check_k4(torch, gs, lay, args, k4, label: str, reps: int):
     """K4 vs its plain version on the training frame: planes, exec, and
     the checkpoint rows of the chunks both ran; then both timed."""
@@ -491,13 +541,17 @@ def check_k4(torch, gs, lay, args, k4, label: str, reps: int):
     chunks = int(nex_k.sum())
     kept = lay.binned.kept
     saturated = int(((ek < kept) & (kept > 0)).sum())
+    cnt = pair_counts(torch, gs, args[0], args[1], ek,
+                      (*args[3:], 1))
     log(f"K4 vs plain [{label}]: {ntiles} tiles x {pix} samples, "
         f"{args[0].shape[0]} packed rows, {executed} executed in {chunks} "
-        f"chunks ({int(nch.sum())} held), {saturated} tiles saturated "
+        f"chunks ({int(nch.sum())} held) by {int((ek > 0).sum())} tiles "
+        f"(longest tile {int(ek.max())}), {saturated} tiles saturated "
         f"inside their lists; planes max abs {max_abs:.3e} "
         f"mean abs {mean_abs:.3e}; checkpoints max abs {ck_err:.3e} over "
         f"{slots.numel()} rows; exec equal on {same * 100:.3f}% of tiles; "
-        f"ck_off equal {bool(torch.equal(off, offp))}")
+        f"ck_off equal {bool(torch.equal(off, offp))}; {cnt['reach']} of "
+        f"{cnt['pairs']} executed pair-samples can reach the alpha floor")
     require(max_abs <= COMP_MAX_ABS and mean_abs <= COMP_MEAN_ABS
             and ck_err <= COMP_MAX_ABS,
             f"K4 [{label}] differs: planes {max_abs}/{mean_abs}, "
@@ -512,30 +566,8 @@ def check_k4(torch, gs, lay, args, k4, label: str, reps: int):
         gs._composite_ckpt_plain, args, max(max_abs, ck_err),
         executed * REC_BYTES + ntiles * (3 * 4 + 4)
         + (4 * ntiles + chunks) * pix * 4,
-        executed * pix * K2_OPS_PER_PAIR_PIXEL, label, reps)
-
-
-def k5_pairs(torch, gs, args, exec_):
-    """(pairs, live, unclamped): K5's executed pair-samples (every executed
-    row of a tile against each of its samples), those whose alpha reaches
-    the 1/255 floor, and those of them below the 0.99 clamp."""
-    records, row_begin, _, ntx, nty, tile_w = args
-    px, py = gs._tile_samples(ntx, nty, tile_w, 1, records.device)
-    begin, ex = row_begin.long(), exec_.long()
-    pairs = 0
-    counts = torch.zeros(2, dtype=torch.int64, device=records.device)
-    for r in range(int(ex.max())):        # the r-th executed row of each tile
-        t = torch.nonzero(ex > r).flatten()
-        rec = records[begin[t] + r]
-        dx, dy = px[t] - rec[:, 0:1], py[t] - rec[:, 1:2]
-        power = (-0.5 * (rec[:, 2:3] * dx * dx + rec[:, 4:5] * dy * dy)
-                 - rec[:, 3:4] * dx * dy)
-        araw = rec[:, 5:6] * torch.exp(power)
-        live = araw >= gs._ALPHA_MIN
-        pairs += dx.numel()
-        counts += torch.stack([live.sum(),
-                               (live & (araw < gs._ALPHA_MAX)).sum()])
-    return pairs, int(counts[0]), int(counts[1])
+        executed * pix * K2_OPS_PER_PAIR_PIXEL, label, reps,
+        exps=cnt["reach"])
 
 
 def check_k5(torch, gs, args, k4, dplanes, label: str, reps: int):
@@ -554,10 +586,14 @@ def check_k5(torch, gs, args, k4, dplanes, label: str, reps: int):
     chunks = int(gs._executed_chunks(begin, first, ex).sum())
     executed = int(ex.sum())
     ntiles, pix = planes.shape[1], planes.shape[2]
-    pairs, live, unclamped = k5_pairs(torch, gs, args, ex)
+    cnt = pair_counts(torch, gs, args[0], args[1], ex, (*args[3:], 1))
     log(f"K5 vs plain [{label}]: {executed} executed rows in {chunks} "
-        f"chunks, {pairs} pair-samples, {live} at or above the alpha floor, "
-        f"{unclamped} of them below the clamp; max |grad| {scale:.3e}, max "
+        f"chunks of {int((ex > 0).sum())} tiles (longest tile "
+        f"{int(ex.max())}; {int((ex > 0).sum()) * pix // 256} CTAs of 256 "
+        f"samples with work), {cnt['pairs']} pair-samples, {cnt['reach']} "
+        f"that can reach the alpha floor, {cnt['live']} at or above it, "
+        f"{cnt['unclamped']} of them below the clamp; max |grad| "
+        f"{scale:.3e}, max "
         f"abs err {max_abs:.3e} ({rel:.3e} of it), mean abs err "
         f"{mean_abs:.3e}; finite "
         f"{bool(torch.isfinite(gk).all())}; rows with a gradient "
@@ -575,8 +611,9 @@ def check_k5(torch, gs, args, k4, dplanes, label: str, reps: int):
         gs._composite_bwd_plain, bwd, max_abs,
         executed * (REC_BYTES + GRAD_BYTES) + ntiles * 4 * 4
         + (chunks + 8 * ntiles) * pix * 4,
-        pairs * K5_OPS_ALPHA + live * K5_OPS_LIVE
-        + unclamped * K5_OPS_UNCLAMPED, label, reps)
+        cnt["pairs"] * K5_OPS_ALPHA + cnt["live"] * K5_OPS_LIVE
+        + cnt["unclamped"] * K5_OPS_UNCLAMPED, label, reps,
+        exps=cnt["reach"])
 
 
 def check_train_small(torch, gs, tr, gs_trainer, devs=("cuda", "cpu")):
@@ -1127,11 +1164,13 @@ def run() -> int:
               "needs one CUDA device", file=sys.stderr)
         return 2
     from ray_eater_tpu_torch import gs_trainer
-    from ray_eater_tpu_torch.bench_knobs import (flythrough_camera,
+    from ray_eater_tpu_torch.bench_knobs import (bench_cloud,
+                                                 flythrough_camera,
+                                                 layout_kwargs,
                                                  render_kwargs,
                                                  resolve_knobs)
     from ray_eater_tpu_torch.models import gs_training as tr
-    from ray_eater_tpu_torch.models.gaussians import inria_cloud, random_cloud
+    from ray_eater_tpu_torch.models.gaussians import random_cloud
     from ray_eater_tpu_torch.ops import _cuda as cuda
     from ray_eater_tpu_torch.ops import gs
 
@@ -1154,26 +1193,19 @@ def run() -> int:
     kw_exact = render_kwargs(knobs, exact=True, interpret=False)
     log("fog knobs: " + " ".join(f"{k}={v}" for k, v in knobs.items()))
     t0 = time.perf_counter()
-    cloud = random_cloud(N_SPLATS, seed=1, extent=1.0,
-                         scale_range=(0.004, 0.02), device=dev)
+    cloud = bench_cloud("fog", N_SPLATS, dev)
     log(f"fog cloud: {N_SPLATS} splats in {time.perf_counter() - t0:.2f} s")
 
     view, proj = flythrough_camera(0.0, W, H, device=dev)
     k1 = check_k1(torch, gs, cloud, view, proj, "fog, t=0",
                   gs.level1_max_radius(gs.KY))
 
-    budget0 = gs.initial_lod_budget(W, H, knobs["tile_w"],
-                                    knobs["max_splats_per_tile"], dev)
-    lay_lod = gs._frame_layout(
-        cloud, view, proj, W, H,
-        pairs_cap_factor=kw_meas["pairs_cap_factor"],
-        max_splats_per_tile=kw_meas["max_splats_per_tile"],
-        lod_budget=budget0, tile_w=knobs["tile_w"])
+    lay_lod = gs._frame_layout(cloud, view, proj, W, H, **layout_kwargs(
+        knobs, False, W, H, dev))
     k2 = check_k2(torch, gs, lay_lod, "fog LOD frame, t=0", reps=20)
     del lay_lod
-    lay_exact = gs._frame_layout(cloud, view, proj, W, H,
-                                 pairs_cap_factor=None,
-                                 tile_w=knobs["tile_w"])
+    lay_exact = gs._frame_layout(cloud, view, proj, W, H, **layout_kwargs(
+        knobs, True, W, H, dev))
     k2_exact = check_k2(torch, gs, lay_exact, "fog exact frame, t=0", reps=5)
     del lay_exact
     torch.cuda.empty_cache()
@@ -1202,16 +1234,13 @@ def run() -> int:
     log("inria knobs: " + " ".join(f"{k}={v}" for k, v in knobs.items()))
     tile_w, decim = knobs["tile_w"], knobs["lod_tail_d"]
     t0 = time.perf_counter()
-    cloud = inria_cloud(N_SPLATS, seed=1, device=dev)
+    cloud = bench_cloud("inria", N_SPLATS, dev)
     log(f"inria cloud: {N_SPLATS} splats in {time.perf_counter() - t0:.2f} s")
     view, proj = flythrough_camera(0.0, W, H, device=dev)
     k1_inria = check_k1(torch, gs, cloud, view, proj, "inria, t=0",
                         gs.level2_max_radius(tile_w))
-    lay = gs._frame_layout(
-        cloud, view, proj, W, H, **{k: kw_meas[k] for k in (
-            "pairs_cap_factor", "max_splats_per_tile", "big_splat_cap",
-            "mid_splat_cap", "mid_lo_splat_cap", "corner_cap", "tile_w",
-            "lod_tail_decim")})
+    lay = gs._frame_layout(cloud, view, proj, W, H, **layout_kwargs(
+        knobs, False, W, H, dev))
     log(f"inria LOD layout, t=0: overflow_pairs {int(lay.binned.overflow)}, "
         f"overflow_big_splats {int(lay.binned.overflow_big)}, head pairs "
         f"kept {int(lay.binned.kept.sum())}, tail pairs kept "
@@ -1222,7 +1251,7 @@ def run() -> int:
     torch.cuda.empty_cache()
 
     check_small(torch, gs, "inria",
-                lambda n, d: inria_cloud(n, seed=1, device=d),
+                lambda n, d: bench_cloud("inria", n, d),
                 flythrough_camera,
                 render_kwargs(resolve_knobs("inria", SMALL["n"], env={}),
                               exact=False, interpret=False),
@@ -1246,15 +1275,20 @@ def run() -> int:
     # ---- training: K4, K5 --------------------------------------------------
     n, w, h = TRAIN["n"], TRAIN["w"], TRAIN["h"]
     t0 = time.perf_counter()
-    lay, args, k4_out, dplanes, loss0 = train_frame(
-        torch, gs, tr, gs_trainer, dev, n, w, h)
+    lay, args, k4_out, dplanes, loss0 = gs_trainer.first_frame(n, w, h,
+                                                               dev)
     log(f"training frame {n} splats {w}x{h} (tile_w {lay.tile_w}, mpt 256): "
         f"{lay.ntx * lay.nty} tiles, {int(lay.binned.kept.sum())} pairs "
         f"kept of {int(lay.binned.count.sum())}, MSE {loss0:.6e}, built in "
         f"{time.perf_counter() - t0:.2f} s")
+    k2_train = check_k2(torch, gs, lay, "training frame, tile_w 128",
+                        reps=20)
     k4 = check_k4(torch, gs, lay, args, k4_out, "training frame", reps=20)
     k5 = check_k5(torch, gs, args, k4_out, dplanes, "training frame",
                   reps=20)
+    log(f"K2 training frame (tile_w 128, no gradients): "
+        f"{k2_train['ms']:.4f} ms, plain {k2_train['plain_ms']:.4f} ms, "
+        f"bound {k2_train['bound_ms']:.4f} ms ({k2_train['bound_by']})")
     del lay, args, k4_out, dplanes
     torch.cuda.empty_cache()
     check_train_small(torch, gs, tr, gs_trainer)

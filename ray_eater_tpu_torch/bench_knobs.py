@@ -4,7 +4,8 @@ The port's own copy of ``resolve_knobs``, ``render_kwargs``,
 ``LOD_ONLY_KNOBS`` and ``flythrough_camera`` from the repository's
 ``bench.py`` (which stays the JAX benchmark). The knob values and their
 environment overrides must stay equal to that file's; a test holds them
-together.
+together. ``bench_cloud`` and ``layout_kwargs`` define the bench frames
+whose composites ``chip_smoke.py`` checks and ``time_composite.py`` times.
 """
 
 from __future__ import annotations
@@ -14,6 +15,8 @@ import os
 import torch
 
 from . import rmath
+from .models.gaussians import inria_cloud, random_cloud
+from .ops import gs
 
 #: knobs that exist only on the measured (LOD) config: the PSNR gate's exact
 #: reference differs from the measured config in exactly these keys
@@ -113,6 +116,39 @@ def render_kwargs(knobs: dict, exact: bool, interpret: bool) -> dict:
                   lod_tail_d=knobs["lod_tail_d"],
                   return_stats=True)
     return kw
+
+
+#: the ``render_kwargs`` that ``render_gaussians`` hands to the layout
+#: (``gs._frame_layout``)
+LAYOUT_KEYS = ("pairs_cap_factor", "max_splats_per_tile", "big_splat_cap",
+               "mid_splat_cap", "mid_lo_splat_cap", "corner_cap", "tile_w",
+               "lod_tail_decim")
+
+
+def layout_kwargs(knobs: dict, exact: bool, W: int, H: int, device) -> dict:
+    """``gs._frame_layout`` kwargs of a bench scene's first frame, as
+    ``render_gaussians`` lays it out under ``render_kwargs(knobs, exact)``:
+    the measured LOD frame, with the first temporal budget
+    (``gs.initial_lod_budget``) where the scene uses temporal budgets, or
+    the PSNR gate's exact reference."""
+    kw = render_kwargs(knobs, exact, interpret=False)
+    out = {k: kw[k] for k in LAYOUT_KEYS if k in kw}
+    if knobs["temporal"] and not exact:
+        out["lod_budget"] = gs.initial_lod_budget(
+            W, H, knobs["tile_w"], knobs["max_splats_per_tile"], device)
+    return out
+
+
+def bench_cloud(scene: str, n: int, device):
+    """The bench scene's ``n``-splat cloud (seed 1): ``inria_cloud`` for
+    inria; for fog ``random_cloud`` with extent 1 and scales in
+    (0.004, 0.02)."""
+    if scene == "inria":
+        return inria_cloud(n, seed=1, device=device)
+    if scene == "fog":
+        return random_cloud(n, seed=1, extent=1.0, scale_range=(0.004, 0.02),
+                            device=device)
+    raise ValueError(f"bench_cloud: no cloud for scene {scene!r}")
 
 
 def flythrough_camera(t, W: int, H: int, device="cuda"):

@@ -83,6 +83,33 @@ def train_setup(n: int, w: int, h: int, dev, path: str = "pallas"):
                                                               **kw))
 
 
+def first_frame(n: int, w: int, h: int, dev):
+    """The plain run's first step taken apart at its composite: (lay, args,
+    (planes, exec, ckpt, ck_off), dplanes, loss) — the init cloud's packed
+    training layout, K4's arguments and outputs on it, and the cotangent
+    of the MSE loss on K4's planes (K5's input). One definition of the
+    frame on which ``chip_smoke.py`` checks and ``time_composite.py``
+    times K4 and K5."""
+    from .models.gs_training import cloud_from_params
+    from .ops import gs
+    view, proj, target, params = train_setup(n, w, h, dev)
+    with torch.no_grad():
+        c = cloud_from_params(params)
+        lay = gs._diff_layout(c.means, c.scales, c.quats, c.opacities,
+                              c.colors, view, proj, w, h)
+    b = lay.binned
+    args = (lay.records, b.row_begin, b.row_end, lay.ntx, lay.nty,
+            lay.tile_w)
+    planes, ex, ck, off = gs._composite_call_ckpt(*args)
+    leaf = planes.clone().requires_grad_(True)
+    img = gs.finalize_planes(leaf, b.visited, lay.nty, lay.ntx,
+                             (0.0, 0.0, 0.0), lay.tile_w)[:h, :w]
+    loss = torch.mean((img - target) ** 2)
+    loss.backward()
+    return lay, args, (planes, ex, ck, off), leaf.grad.contiguous(), \
+        loss.item()
+
+
 def _psnr(mse: float) -> float:
     return float(10 * np.log10(1.0 / max(mse, 1e-12)))
 

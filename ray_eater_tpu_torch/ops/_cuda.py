@@ -25,9 +25,9 @@ import subprocess
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent.parent
-_SOURCES = tuple(_PKG / "csrc" / f for f in (
-    "gs_project.cu", "gs_composite.cu", "gs_composite_bwd.cu", "raster.cu",
-    "sampling.cu", "splat.cu"))
+_CSRC = _PKG / "csrc"
+_SOURCES = ("gs_project.cu", "gs_composite.cu", "gs_composite_bwd.cu",
+            "raster.cu", "sampling.cu", "splat.cu")
 _BUILD = _PKG / "_build"
 _ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 _FLAGS = (*_ARCH, "-std=c++17", "-O3", "--fmad=false", "-Xcompiler", "-fPIC")
@@ -67,12 +67,14 @@ def _run(procs) -> None:
         raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
 
 
-def build() -> Path:
-    """Compile the kernel library if it is not built yet; return its path.
-    Each source compiles in its own ``nvcc`` process, all started together,
+def build(csrc: Path = _CSRC) -> Path:
+    """Compile the kernel library from the sources in ``csrc`` (this
+    package's by default) if it is not built yet; return its path. Each
+    source compiles in its own ``nvcc`` process, all started together,
     then one link makes the shared library."""
+    sources = [Path(csrc) / f for f in _SOURCES]
     h = hashlib.sha256(" ".join(_FLAGS).encode())
-    for src in _SOURCES:
+    for src in sources:
         h.update(src.read_bytes())
     out = _BUILD / f"libport_kernels_{h.hexdigest()[:16]}.so"
     if out.exists():
@@ -80,9 +82,9 @@ def build() -> Path:
     _BUILD.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
     tag = f"{h.hexdigest()[:16]}.{os.getpid()}"
-    objs = [_BUILD / f"{src.stem}.{tag}.o" for src in _SOURCES]
+    objs = [_BUILD / f"{src.stem}.{tag}.o" for src in sources]
     compiles = []
-    for src, obj in zip(_SOURCES, objs):
+    for src, obj in zip(sources, objs):
         cmd = [nvcc, *_FLAGS, "-c", "-o", str(obj), str(src)]
         compiles.append((cmd, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
@@ -99,35 +101,43 @@ def build() -> Path:
 
 def lib() -> ctypes.CDLL:
     """The loaded kernel library (built on first call)."""
-    global _lib
     if _lib is None:
-        so = ctypes.CDLL(str(build()))
-        p, i = ctypes.c_void_p, ctypes.c_int
-        so.gs_project.argtypes = [p, p, p, p, p, p, i, p]
-        so.gs_project.restype = i
-        so.gs_composite.argtypes = [p, i, p, p, p, p, i, i, i, p]
-        so.gs_composite.restype = i
-        so.gs_composite_tail.argtypes = [p, i, p, p, p, p, p, i, i, i, i, p]
-        so.gs_composite_tail.restype = i
-        so.gs_composite_ckpt.argtypes = [p, i, p, p, p, p, p, p, i, i, i, p]
-        so.gs_composite_ckpt.restype = i
-        so.gs_composite_bwd.argtypes = [p, i, p, p, p, p, p, p, p, p, i, i, i,
-                                        p]
-        so.gs_composite_bwd.restype = i
-        f = ctypes.c_float
-        so.raster_dense.argtypes = [p, i, i, p, i, i, f, f, i, p, p, p, p, p]
-        so.raster_dense.restype = i
-        so.raster_binned.argtypes = [p, p, p, i, i, p, i, i, f, f, i, p, p, p,
-                                     p, p, p]
-        so.raster_binned.restype = i
-        so.shade_fetch.argtypes = [p, p, p, i, i, i, i, p, p]
-        so.shade_fetch.restype = i
-        so.subtile_sample.argtypes = [p] * 13 + [i, p]
-        so.subtile_sample.restype = i
-        so.splat_mask.argtypes = [p, i, i, i, i, i, i, p, p]
-        so.splat_mask.restype = i
-        _lib = so
+        load()
     return _lib
+
+
+def load(csrc: Path = _CSRC) -> None:
+    """Build the library from the sources in ``csrc`` and bind it; every
+    wrapper launches its kernels from then on. Another checkout's ``csrc``
+    (same file names and C entry points) times that version of the
+    kernels under this package's wrappers (``time_composite.py``)."""
+    global _lib
+    so = ctypes.CDLL(str(build(csrc)))
+    p, i = ctypes.c_void_p, ctypes.c_int
+    so.gs_project.argtypes = [p, p, p, p, p, p, i, p]
+    so.gs_project.restype = i
+    so.gs_composite.argtypes = [p, i, p, p, p, p, i, i, i, p]
+    so.gs_composite.restype = i
+    so.gs_composite_tail.argtypes = [p, i, p, p, p, p, p, i, i, i, i, p]
+    so.gs_composite_tail.restype = i
+    so.gs_composite_ckpt.argtypes = [p, i, p, p, p, p, p, p, i, i, i, p]
+    so.gs_composite_ckpt.restype = i
+    so.gs_composite_bwd.argtypes = [p, i, p, p, p, p, p, p, p, p, i, i, i,
+                                    p]
+    so.gs_composite_bwd.restype = i
+    f = ctypes.c_float
+    so.raster_dense.argtypes = [p, i, i, p, i, i, f, f, i, p, p, p, p, p]
+    so.raster_dense.restype = i
+    so.raster_binned.argtypes = [p, p, p, i, i, p, i, i, f, f, i, p, p, p,
+                                 p, p, p]
+    so.raster_binned.restype = i
+    so.shade_fetch.argtypes = [p, p, p, i, i, i, i, p, p]
+    so.shade_fetch.restype = i
+    so.subtile_sample.argtypes = [p] * 13 + [i, p]
+    so.subtile_sample.restype = i
+    so.splat_mask.argtypes = [p, i, i, i, i, i, i, p, p]
+    so.splat_mask.restype = i
+    _lib = so
 
 
 def check_arg(t, name: str, dtype, shape, device) -> None:

@@ -41,6 +41,7 @@ Not ported yet (``render_gaussians`` raises ``NotImplementedError``): the
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import math
 from typing import NamedTuple
@@ -843,6 +844,26 @@ def _composite_tail_plain(records, row_begin, row_end, t_entry, ntx: int,
                                  nty, tile_w, decim)
 
 
+def _cull_threshold(op):
+    """Plain twin of K2's warp row cull (``cull_threshold`` in
+    ``csrc/gs_composite.cu``): the power below which a row of opacity
+    ``op`` (f32) leaves a sample untouched, alpha < 1/255. With L =
+    ln(alpha_min / op): min(L, 80) - 1e-3; NaN (no sample below it) for a
+    NaN or negative opacity."""
+    lim = torch.log(torch.full_like(op, _ALPHA_MIN) / op)
+    return torch.where(lim >= 80.0, 80.0, lim) - 1e-3
+
+
+def _composite_footprint(tile_w: int) -> tuple[int, int]:
+    """(columns, rows) of the samples one warp of K2 covers at ``tile_w``,
+    the unit its warp row cull skips a row for, as the kernel reports it
+    (``gs_composite_footprint``; builds the kernel library)."""
+    cols, rows = ctypes.c_int(), ctypes.c_int()
+    _cuda.check(_cuda.lib().gs_composite_footprint(
+        tile_w, ctypes.byref(cols), ctypes.byref(rows)), "K2 footprint")
+    return cols.value, rows.value
+
+
 def _composite_args(name, records, row_begin, row_end, ntiles, tile_w, dev):
     if dev.type != "cuda":
         raise ValueError(f"{name}: unsupported device {dev}")
@@ -1058,7 +1079,7 @@ def _composite_bwd_call(records, row_begin, row_end, exec_, ck_off, ckpt,
                         tile_w: int = TILE_W):
     """K5 wrapper: dL/d(packed records) (R, 12) f32 from K4's outputs
     (its planes among them) and the (4, ntiles, 32*tile_w) cotangent
-    ``dplanes``; zero-filled, the kernel writes every row of every chunk
+    ``dplanes``; zero-filled, the kernel adds into every row of every chunk
     the forward ran. CPU tensors take the plain version; CUDA tensors
     launch the kernel (or raise)."""
     dev = records.device

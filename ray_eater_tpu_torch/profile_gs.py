@@ -139,19 +139,15 @@ def _train_step(W, H, n, dev):
 def _render_modes(scene, W, H, n, dev):
     """The LOD and exact frame closures of a flythrough scene, its temporal
     budgets (if any) warmed over 8 frames."""
-    from .bench_knobs import flythrough_camera, render_kwargs, resolve_knobs
-    from .models.gaussians import inria_cloud, random_cloud
+    from .bench_knobs import (bench_cloud, flythrough_camera, render_kwargs,
+                              resolve_knobs)
     from .ops import gs
     knobs = resolve_knobs(scene, n, env={})
     kw_meas = render_kwargs(knobs, exact=False, interpret=False)
     kw_exact = render_kwargs(knobs, exact=True, interpret=False)
     mpt, tile_w = knobs["max_splats_per_tile"], knobs["tile_w"]
     ntx, nty = gs.num_tiles(W, H, tile_w)
-    if scene == "inria":
-        cloud = inria_cloud(n, seed=1, device=dev)
-    else:
-        cloud = random_cloud(n, seed=1, extent=1.0,
-                             scale_range=(0.004, 0.02), device=dev)
+    cloud = bench_cloud(scene, n, dev)
     view, proj = flythrough_camera(0.5, W, H, device=dev)
     budget = None
     if knobs["temporal"]:     # warm the temporal budgets over 8 frames

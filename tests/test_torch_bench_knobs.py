@@ -75,3 +75,38 @@ def test_port_sources_do_not_import_jax_or_reference():
     assert len(files) > 5
     for f in files:
         assert not pat.search(f.read_text()), f
+
+
+@pytest.mark.parametrize("exact", [False, True])
+@pytest.mark.parametrize("scene", ("fog", "inria"))
+def test_layout_kwargs_are_render_gaussians_layout(scene, exact):
+    """``layout_kwargs`` hands ``_frame_layout`` every render kwarg that
+    ``render_gaussians`` hands it, plus the first temporal budget where
+    the scene's LOD frame uses one."""
+    import torch
+    knobs = bench_knobs.resolve_knobs(scene, 1_000_000, env={})
+    kw = bench_knobs.render_kwargs(knobs, exact, interpret=False)
+    lk = bench_knobs.layout_kwargs(knobs, exact, 480, 270, "cpu")
+    params = set(inspect.signature(gs._frame_layout).parameters)
+    assert set(lk) <= params
+    budget = lk.pop("lod_budget", None)
+    assert lk == {k: v for k, v in kw.items() if k in params}
+    if knobs["temporal"] and not exact:
+        assert torch.equal(budget, gs.initial_lod_budget(
+            480, 270, knobs["tile_w"], knobs["max_splats_per_tile"], "cpu"))
+    else:
+        assert budget is None
+
+
+def test_bench_cloud_is_the_flythrough_cloud():
+    from ray_eater_tpu_torch.models import gaussians
+    for scene, ref in (
+            ("fog", gaussians.random_cloud(500, seed=1, extent=1.0,
+                                           scale_range=(0.004, 0.02),
+                                           device="cpu")),
+            ("inria", gaussians.inria_cloud(500, seed=1, device="cpu"))):
+        got = bench_knobs.bench_cloud(scene, 500, "cpu")
+        for f in ("means", "scales", "quats", "opacities", "colors"):
+            assert bool((getattr(got, f) == getattr(ref, f)).all()), (scene, f)
+    with pytest.raises(ValueError):
+        bench_knobs.bench_cloud("shell", 500, "cpu")

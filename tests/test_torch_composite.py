@@ -7,7 +7,8 @@ Tolerances: planes of visited tiles within 2e-3 max abs (a running
 ``cumprod`` against the TPU's doubling scan: reassociation only, so the
 measured error is ~1e-6); ``exec`` equal on every tile. The scene puts an
 opaque blanket in front of a fog so that some tiles saturate inside their
-lists (exec < kept).
+lists (exec < kept). Also: K2's warp row cull bound (its plain twin)
+never skips a sample that reaches alpha 1/255.
 """
 
 import numpy as np
@@ -124,3 +125,62 @@ def test_k2_wrapper_refuses_other_devices():
                            torch.empty(6, dtype=torch.int32, device="meta"),
                            torch.empty(6, dtype=torch.int32, device="meta"),
                            2, 3, 32)
+
+
+def test_warp_row_cull_is_exact():
+    """K2's warp row cull (``_cull_threshold``, the kernel's bound in plain
+    PyTorch) skips a (row, sample) only where its alpha stays below 1/255:
+    random conics (sigma 0.3-60 px, any angle, the 0.3 px dilation) and
+    opacities (uniform, within 1e-2..1e-7 of 1/255, 1e-30, 0), at random
+    offsets and at knife edges, offsets scaled onto each row's 1/255
+    contour by 1 +- 1e-7..1e-1. Float32, each operation in the kernel's
+    order."""
+    rng = np.random.RandomState(9)
+    n, m = 3000, 48
+    sig = rng.uniform(0.3, 60.0, (n, 2)) ** 2
+    th = rng.uniform(0.0, np.pi, n)
+    c, s = np.cos(th), np.sin(th)
+    a = c * c * sig[:, 0] + s * s * sig[:, 1] + 0.3
+    off = c * s * (sig[:, 0] - sig[:, 1])
+    d = s * s * sig[:, 0] + c * c * sig[:, 1] + 0.3
+    det = a * d - off * off
+    conic = np.stack([d, -off, a], 1) / det[:, None]       # ca, cb, cc
+    amin = np.float32(1.0 / 255.0)
+    op = rng.uniform(0.0, 1.0, n)
+    edge = rng.rand(n) < 0.3
+    op[edge] = amin * (1.0 + rng.choice([-1, 1], edge.sum())
+                       * 10.0 ** rng.uniform(-7, -2, edge.sum()))
+    op[:3] = (1e-30, 0.0, 1.0)
+    # offsets: random within 4 sigma, and on the contour q = ln(op/amin)
+    # along random directions, scaled by 1 +- 10^-7..10^-1
+    u = rng.normal(size=(n, m, 2))
+    u /= np.linalg.norm(u, axis=2, keepdims=True)
+    quad = (conic[:, None, 0] * u[..., 0] ** 2 + conic[:, None, 2]
+            * u[..., 1] ** 2 + 2 * conic[:, None, 1] * u[..., 0] * u[..., 1])
+    lq = np.log(np.maximum(op, 1e-38) / amin)[:, None]
+    scale = 1.0 + rng.choice([-1, 1], (n, m)) * 10.0 ** rng.uniform(-7, -1,
+                                                                      (n, m))
+    r = np.sqrt(2.0 * np.abs(lq) * scale / quad)
+    r[:, m // 2:] = rng.uniform(0.0, 4.0, (n, m - m // 2)) * np.sqrt(
+        sig.max(1))[:, None]
+    mean = rng.uniform(0.0, 32.0, (n, 2))
+    f = lambda x: torch.from_numpy(np.asarray(x, np.float32))  # noqa: E731
+    px = f(mean[:, None, 0] + r * u[..., 0])
+    py = f(mean[:, None, 1] + r * u[..., 1])
+    mx, my = f(mean[:, 0:1]), f(mean[:, 1:2])
+    ca, cb, cc = (f(conic[:, i:i + 1]) for i in range(3))
+    opt = f(op[:, None])
+    dx, dy = px - mx, py - my
+    power = -0.5 * (ca * dx * dx + cc * dy * dy) - cb * dx * dy
+    alpha = torch.clamp(opt * torch.exp(power), max=0.99)
+    culled = power < gs._cull_threshold(opt)
+    assert not bool((culled & (alpha >= amin)).any())
+    # the bound is tight: far samples of visible rows are culled, and the
+    # knife edges land on both sides
+    assert bool(culled[op > 0.05, m // 2:].any())
+    near = torch.from_numpy(np.abs(scale - 1.0) < 1e-3)[:, :m // 2]
+    assert bool((alpha[:, :m // 2] >= amin)[near].any())
+    assert bool(culled[:, :m // 2][near].any())
+    far = torch.from_numpy((scale > 1.05) & (op[:, None] > 0.05))[:, :m // 2]
+    assert bool(culled[:, :m // 2][far].all())
+    assert bool(torch.isnan(gs._cull_threshold(f([np.nan, -0.5]))).all())

@@ -8,12 +8,16 @@ present and skips when there is none. Run on a GPU machine with
 ``python -m pytest tests/test_torch_gpu.py -m gpu --noconftest`` (the
 suite's conftest imports JAX, which this file does not need).
 
+K2 and K5 also run on a 3x2-tile layout built by hand at tile_w 32, 64
+and 128: a list over three 128-row chunks from an unaligned row_begin, a
+tile that saturates in its second chunk, tiles with no rows.
+
 Tolerances: K1 floats within rtol 1e-5 and integers equal on all but
 1e-4 of the splats (off by at most 1); K2, K3 and K4 planes (and K4's
 checkpoints) within 2e-3 max abs and 1e-5 mean abs (running product vs
 cumprod), exec equal on ≥ 99.9% of tiles; K5 within 1e-4 × the plain
-version's largest |gradient| (reassociated sums, shared-memory atomics in
-no fixed order); K6 and K7 winner ids equal and λ0/λ1/depth within 1e-6
+version's largest |gradient| (reassociated sums, global atomics in no
+fixed order); K6 and K7 winner ids equal and λ0/λ1/depth within 1e-6
 where they agree (the same operations in the same order, --fmad=false),
 K8 equal, K9 within 1e-6, K10 equal; SH colours on CUDA within 1e-6 of
 the CPU's (the direction's norm and the products may round differently).
@@ -23,8 +27,8 @@ import numpy as np
 import pytest
 import torch
 
-from ray_eater_tpu_torch.bench_knobs import (flythrough_camera, render_kwargs,
-                                             resolve_knobs)
+from ray_eater_tpu_torch.bench_knobs import (flythrough_camera, layout_kwargs,
+                                             render_kwargs, resolve_knobs)
 from ray_eater_tpu_torch.models.gaussians import inria_cloud, random_cloud
 from ray_eater_tpu_torch.ops import gs
 
@@ -68,18 +72,73 @@ def test_k1_matches_plain(scene):
         <= 1e-4 * n
 
 
-@pytest.mark.parametrize("mpt", [None, 176])
-@pytest.mark.parametrize("tile_w", [32, 128])
-def test_k2_matches_plain(scene, mpt, tile_w):
+# rows of each tile of the crafted 3x2-tile layout, and what the forward
+# runs: tile 0's list spans three 128-row chunks from an unaligned
+# row_begin; tile 1's saturates in its second chunk (an opaque blanket 130
+# rows in), so it runs two of its three chunks; tile 3 runs a short list in
+# one chunk; tiles 2, 4 and 5 have no rows
+CRAFTED_SPANS = ((37, 337), (394, 694), (694, 694), (768, 773), (0, 0),
+                 (0, 0))
+CRAFTED_EXEC = [300, 246, 0, 5, 0, 0]
+CRAFTED_CHUNKS = [3, 2, 0, 1, 0, 0]
+
+
+def _crafted_layout(dev, tile_w):
+    """K2's arguments on a frame of 3x2 tiles built by hand from a seed:
+    random small Gaussians (sigma 0.5-4 px, opacity 0.05-0.6) over each
+    tile with rows, and in tile 1 eight rows of a wide blanket at opacity
+    0.995 (alpha clamped at 0.99) that take every sample below T = 1e-4."""
+    ntx, nty = 3, 2
+    rng = np.random.RandomState(tile_w)
+    rec = np.zeros((800, 12), np.float32)
+    for t, (b, e) in enumerate(CRAFTED_SPANS):
+        n = e - b
+        if n == 0:
+            continue
+        sig = rng.uniform(0.5, 4.0, (n, 2)) ** 2
+        th = rng.uniform(0.0, np.pi, n)
+        c, s = np.cos(th), np.sin(th)
+        a = c * c * sig[:, 0] + s * s * sig[:, 1] + 0.3
+        off = c * s * (sig[:, 0] - sig[:, 1])
+        d = s * s * sig[:, 0] + c * c * sig[:, 1] + 0.3
+        det = a * d - off * off
+        rec[b:e, 0] = (t % ntx) * tile_w + rng.uniform(-4, tile_w + 4, n)
+        rec[b:e, 1] = (t // ntx) * 32 + rng.uniform(-4, 36, n)
+        rec[b:e, 2:5] = np.stack([d, -off, a], 1) / det[:, None]
+        rec[b:e, 5] = rng.uniform(0.05, 0.6, n)
+        rec[b:e, 6:9] = rng.rand(n, 3)
+    blanket = slice(CRAFTED_SPANS[1][0] + 130, CRAFTED_SPANS[1][0] + 138)
+    rec[blanket, :6] = (1.5 * tile_w, 16.0, 1e-6, 0.0, 1e-6, 0.995)
+    span = torch.tensor(CRAFTED_SPANS, dtype=torch.int32, device=dev)
+    return (torch.from_numpy(rec).to(dev), span[:, 0].contiguous(),
+            span[:, 1].contiguous(), ntx, nty, tile_w)
+
+
+def _k2_args(scene, layout, tile_w):
+    if layout == "crafted":
+        return _crafted_layout(scene[0].means.device, tile_w)
     cloud, view, proj = scene
+    mpt = {"exact": None, "lod176": 176, "lod256": 256}[layout]
     lay = gs._frame_layout(cloud, view, proj, W, H, tile_w=tile_w,
                            max_splats_per_tile=mpt)
     b = lay.binned
-    args = (lay.records, b.row_begin, b.row_end, lay.ntx, lay.nty, tile_w)
+    return lay.records, b.row_begin, b.row_end, lay.ntx, lay.nty, tile_w
+
+
+@pytest.mark.parametrize("layout", ["exact", "lod176", "crafted"])
+@pytest.mark.parametrize("tile_w", [32, 64, 128])
+def test_k2_matches_plain(scene, layout, tile_w):
+    args = _k2_args(scene, layout, tile_w)
     (pk, ek), (pp, ep) = gs._composite_call(*args), gs._composite_plain(*args)
     err = (pk - pp).abs()
     assert float(err.max()) <= 2e-3 and float(err.mean()) <= 1e-5
     assert float((ek == ep).float().mean()) >= 0.999
+    if layout == "crafted":
+        assert ep.tolist() == CRAFTED_EXEC and ek.tolist() == CRAFTED_EXEC
+        # tiles without rows keep rgb 0 and T 1
+        empty = torch.tensor([2, 4, 5], device=pk.device)
+        assert bool((pk[:3, empty] == 0).all() & (pk[3, empty] == 1).all())
+        assert float(pk[3, 1].max()) < 1e-4
 
 
 def test_render_is_finite_and_counts_launches(scene):
@@ -106,11 +165,8 @@ def inria():
 @pytest.mark.parametrize("decim", [1, 2, 4])
 def test_k3_matches_plain(inria, decim):
     cloud, knobs, view, proj = inria
-    kw = render_kwargs(knobs, exact=False, interpret=False)
-    lay = gs._frame_layout(cloud, view, proj, W, H, **{k: kw[k] for k in (
-        "pairs_cap_factor", "max_splats_per_tile", "big_splat_cap",
-        "mid_splat_cap", "mid_lo_splat_cap", "corner_cap", "tile_w",
-        "lod_tail_decim")})
+    lay = gs._frame_layout(cloud, view, proj, W, H, **layout_kwargs(
+        knobs, False, W, H, cloud.means.device))
     b, tw = lay.binned, lay.tile_w
     head, _ = gs._composite_call(lay.records, b.row_begin, b.row_end,
                                  lay.ntx, lay.nty, tw)
@@ -152,18 +208,9 @@ def test_inria_render_counts_launches(inria, exact):
                                   k3_composite_tail=0 if exact else 1)
 
 
-def _train_args(scene, tile_w):
-    """K4's arguments on the scene's LOD layout (mpt 256)."""
-    cloud, view, proj = scene
-    lay = gs._frame_layout(cloud, view, proj, W, H, tile_w=tile_w,
-                           max_splats_per_tile=256)
-    b = lay.binned
-    return lay.records, b.row_begin, b.row_end, lay.ntx, lay.nty, tile_w
-
-
 @pytest.mark.parametrize("tile_w", [32, 128])
 def test_k4_matches_plain(scene, tile_w):
-    args = _train_args(scene, tile_w)
+    args = _k2_args(scene, "lod256", tile_w)
     pk, ek, ck, off = gs._composite_call_ckpt(*args)
     pp, ep, cp, offp = gs._composite_ckpt_plain(*args)
     err = (pk - pp).abs()
@@ -181,9 +228,10 @@ def test_k4_matches_plain(scene, tile_w):
     assert float((ck[rows] - cp[rows]).abs().max()) <= 2e-3
 
 
-@pytest.mark.parametrize("tile_w", [32, 128])
-def test_k5_matches_plain(scene, tile_w):
-    args = _train_args(scene, tile_w)
+@pytest.mark.parametrize("layout", ["lod256", "crafted"])
+@pytest.mark.parametrize("tile_w", [32, 64, 128])
+def test_k5_matches_plain(scene, layout, tile_w):
+    args = _k2_args(scene, layout, tile_w)
     planes, ex, ck, off = gs._composite_call_ckpt(*args)
     gen = torch.Generator(device=planes.device).manual_seed(0)
     d = torch.randn(planes.shape, generator=gen, device=planes.device)
@@ -193,6 +241,20 @@ def test_k5_matches_plain(scene, tile_w):
     scale = float(gp.abs().max())
     assert scale > 0 and bool(torch.isfinite(gk).all())
     assert float((gk - gp).abs().max()) <= 1e-4 * scale
+    if layout == "crafted":
+        # tile 1 ran two chunks beside tile 2 (exec 0); rows of chunks
+        # that did not run, and of no tile, get no gradient
+        assert ex.tolist() == CRAFTED_EXEC
+        begin, _, first, _ = gs._chunk_spans(args[1], args[2],
+                                             args[0].shape[0])
+        assert gs._executed_chunks(begin, first, ex).tolist() \
+            == CRAFTED_CHUNKS
+        ran = torch.zeros(args[0].shape[0], dtype=torch.bool,
+                          device=gk.device)
+        for (b, _), n in zip(CRAFTED_SPANS, CRAFTED_EXEC):
+            ran[b:b + n] = True
+        assert bool((gk[~ran] == 0).all()) and bool((gk[ran] != 0).any(1)
+                                                     .any())
 
 
 def test_train_step_is_finite_and_counts_launches(scene):

@@ -405,3 +405,25 @@ def test_train_step_pallas_matches_optax():
     losses += [float(tstep(tp, target)) for _ in range(2)]
     np.testing.assert_allclose(losses, jlosses, rtol=1e-3)
     assert losses[-1] < losses[0]
+
+
+def test_first_frame_is_the_first_train_step():
+    """``gs_trainer.first_frame`` (the frame chip_smoke.py checks K4/K5 on)
+    is the plain run's first step: its loss equals the step's MSE through
+    ``render_diff_pallas``, and its cotangent is that loss's gradient
+    w.r.t. K4's planes."""
+    from ray_eater_tpu_torch import gs_trainer
+    n, w, h, dev = 600, 96, 64, torch.device("cpu")
+    lay, args, (planes, ex, ck, off), dplanes, loss = gs_trainer.first_frame(
+        n, w, h, dev)
+    view, proj, target, params = gs_trainer.train_setup(n, w, h, dev)
+    with torch.no_grad():
+        img = ttrain.render_diff_pallas(params, view, proj, w, h)
+    assert loss == pytest.approx(float(torch.mean((img - target) ** 2)),
+                                 rel=1e-6)
+    assert args[0] is lay.records and int(ex.sum()) > 0
+    leaf = planes.clone().requires_grad_(True)
+    out = gs.finalize_planes(leaf, lay.binned.visited, lay.nty, lay.ntx,
+                             (0.0, 0.0, 0.0), lay.tile_w)[:h, :w]
+    (g,) = torch.autograd.grad(torch.mean((out - target) ** 2), leaf)
+    assert dplanes.shape == planes.shape and torch.equal(dplanes, g)
