@@ -351,14 +351,27 @@ def check_k3(torch, gs, lay, decim: int, label: str, reps: int):
     head, _ = gs._composite_call(lay.records, b.row_begin, b.row_end,
                                  lay.ntx, lay.nty, lay.tile_w)
     td = gs._tail_entry(head[3], b.visited, lay.tile_w, decim)
+    args = (lay.records_tl, b.row_begin_tl, b.row_end_tl, td, lay.ntx,
+            lay.nty, lay.tile_w, decim)
+    # the kernel's first pass composites every chunk of a tile that is not
+    # skipped at entry, `ctas` CTAs a tile; its merge stops at the vote
+    ctas, threads, resident = gs._composite_shape(3, lay.tile_w, decim)
+    _, ek = gs._composite_tail_call(*args)
+    begin, _, first, nch = gs._chunk_spans(args[1], args[2],
+                                           args[0].shape[0])
+    ran = gs._executed_chunks(begin, first, ek)
+    past = int(torch.where(ran > 0, nch - ran, 0).sum())
     log(f"K3 [{label}]: decim {decim}, {int(b.kept_tl.sum())} tail pairs "
-        f"granted")
+        f"granted; first pass {ctas} CTAs a tile x {threads} threads "
+        f"({resident} CTAs resident), {int(ran.sum())} chunks merged of "
+        f"{int(nch.sum())} held (longest tail {int(nch.max())} chunks), "
+        f"{past} composited past the stop "
+        f"({past / max(int(ran.sum()), 1) * 100:.2f}% of those merged)")
     return check_composite(
         torch, gs, "K3 tail composite", "ray_eater_tpu/ops/gs.py:1416",
-        gs._composite_tail_call, gs._composite_tail_plain,
-        (lay.records_tl, b.row_begin_tl, b.row_end_tl, td, lay.ntx, lay.nty,
-         lay.tile_w, decim), (lay.ntx, lay.nty, lay.tile_w, decim),
-        torch.ones_like(b.visited), 1, label, reps)
+        gs._composite_tail_call, gs._composite_tail_plain, args,
+        (lay.ntx, lay.nty, lay.tile_w, decim), torch.ones_like(b.visited), 1,
+        label, reps)
 
 
 def check_small(torch, gs, scene: str, make_cloud, flythrough_camera,
@@ -543,10 +556,14 @@ def check_k4(torch, gs, lay, args, k4, label: str, reps: int):
     saturated = int(((ek < kept) & (kept > 0)).sum())
     cnt = pair_counts(torch, gs, args[0], args[1], ek,
                       (*args[3:], 1))
+    cl, threads, resident = gs._composite_shape(4, args[-1])
     log(f"K4 vs plain [{label}]: {ntiles} tiles x {pix} samples, "
         f"{args[0].shape[0]} packed rows, {executed} executed in {chunks} "
         f"chunks ({int(nch.sum())} held) by {int((ek > 0).sum())} tiles "
-        f"(longest tile {int(ek.max())}), {saturated} tiles saturated "
+        f"(longest tile {int(ek.max())}) in clusters of {cl} CTAs x "
+        f"{threads} threads ({resident} CTAs resident; "
+        f"{int((ek > 0).sum()) * cl} CTAs with work), {saturated} tiles "
+        f"saturated "
         f"inside their lists; planes max abs {max_abs:.3e} "
         f"mean abs {mean_abs:.3e}; checkpoints max abs {ck_err:.3e} over "
         f"{slots.numel()} rows; exec equal on {same * 100:.3f}% of tiles; "

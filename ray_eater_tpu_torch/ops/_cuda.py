@@ -118,7 +118,7 @@ def load(csrc: Path = _CSRC) -> None:
     so.gs_project.restype = i
     so.gs_composite.argtypes = [p, i, p, p, p, p, i, i, i, p]
     so.gs_composite.restype = i
-    so.gs_composite_tail.argtypes = [p, i, p, p, p, p, p, i, i, i, i, p]
+    so.gs_composite_tail.argtypes = [p, i, p, p, p, p, p, i, i, i, i, p, p]
     so.gs_composite_tail.restype = i
     so.gs_composite_ckpt.argtypes = [p, i, p, p, p, p, p, p, i, i, i, p]
     so.gs_composite_ckpt.restype = i

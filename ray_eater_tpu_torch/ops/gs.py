@@ -762,14 +762,16 @@ def _chunk_spans(row_begin, row_end, nrows: int):
 
 def _composite_grid_plain(records, row_begin, row_end, t_entry, ntx: int,
                           nty: int, tile_w: int, decim: int, ckpt=None,
-                          ck_off=None):
+                          ck_off=None, merge: bool = False):
     """Plain PyTorch composite of every tile's packed rows over a sample
     grid decimated by ``decim``, the body of K2's (``decim`` 1, ``t_entry``
     None: T starts at 1), K3's and K4's plain versions. Returns (planes (4,
     ntiles, pixd) f32 = r, g, b, absolute T; exec (ntiles,) i32), pixd =
     (32/decim)·(tile_w/decim); ``t_entry`` is (ntiles, pixd). With ``ckpt``
     (nslots, pixd), each tile's T at the entry of its chunk j is written to
-    row ``ck_off[t] + j``, for the chunks it runs (K4).
+    row ``ck_off[t] + j``, for the chunks it runs (K4). With ``merge``,
+    each chunk's colour is composited from T = 1 and then merged, C ← C +
+    T·C_loc, as K3's kernel merges its chunks (``_composite_tail_merged``).
 
     Sample i of tile t sits at the centre of its decim×decim quad. Tile t
     composites packed rows [row_begin[t], row_end[t]) front to back, in
@@ -817,9 +819,14 @@ def _composite_grid_plain(records, row_begin, row_end, t_entry, ntx: int,
             incl = torch.cumprod(1.0 - alpha, dim=1)
             excl = torch.cat([torch.ones_like(incl[:, :1]), incl[:, :-1]], 1)
             t_in = tt[g]
-            w = alpha * excl * t_in[:, None, :]
-            rgb[:, g] += torch.einsum("gcr,gcp->rgp",
-                                      rec[:, :, _CR:_CB2 + 1], w)
+            if merge:
+                loc = torch.einsum("gcr,gcp->rgp", rec[:, :, _CR:_CB2 + 1],
+                                   alpha * excl)
+                rgb[:, g] = rgb[:, g] + t_in[None] * loc
+            else:
+                w = alpha * excl * t_in[:, None, :]
+                rgb[:, g] += torch.einsum("gcr,gcp->rgp",
+                                          rec[:, :, _CR:_CB2 + 1], w)
             t_new = t_in * incl[:, -1]
             tt[g] = t_new
             exec_[g] += live.sum(1).to(_I32)
@@ -844,6 +851,18 @@ def _composite_tail_plain(records, row_begin, row_end, t_entry, ntx: int,
                                  nty, tile_w, decim)
 
 
+def _composite_tail_merged(records, row_begin, row_end, t_entry, ntx: int,
+                           nty: int, tile_w: int = TILE_W, decim: int = 2):
+    """K3's kernel order in plain PyTorch, for tests and ``chip_smoke.py``
+    (the wrapper's CPU path is ``_composite_tail_plain``): each chunk of a
+    tile's tail composited from T = 1 into (C_loc, T_loc), then merged in
+    order, C ← C + T·C_loc, T ← T·T_loc, with the tile-wide vote after
+    each chunk. T and exec equal the plain version's; the colours differ
+    by the reassociation only."""
+    return _composite_grid_plain(records, row_begin, row_end, t_entry, ntx,
+                                 nty, tile_w, decim, merge=True)
+
+
 def _cull_threshold(op):
     """Plain twin of K2's warp row cull (``cull_threshold`` in
     ``csrc/gs_composite.cu``): the power below which a row of opacity
@@ -862,6 +881,21 @@ def _composite_footprint(tile_w: int) -> tuple[int, int]:
     _cuda.check(_cuda.lib().gs_composite_footprint(
         tile_w, ctypes.byref(cols), ctypes.byref(rows)), "K2 footprint")
     return cols.value, rows.value
+
+
+def _composite_shape(kernel: int, tile_w: int, decim: int = 1):
+    """(CTAs a tile, threads a CTA, CTAs the card holds at once) of K4
+    (``kernel`` 4, one thread-block cluster a tile, at ``tile_w``) or of
+    K3's first pass (3, at ``tile_w`` and ``decim``), as the kernel
+    library reports them (``gs_composite_shape``; builds the library, needs
+    a CUDA device)."""
+    fn = _cuda.lib().gs_composite_shape
+    i, pi = ctypes.c_int, ctypes.POINTER(ctypes.c_int)
+    fn.argtypes, fn.restype = [i, i, i, pi, pi, pi], i
+    c, t, r = i(), i(), i()
+    _cuda.check(fn(kernel, tile_w, decim, ctypes.byref(c), ctypes.byref(t),
+                   ctypes.byref(r)), f"K{kernel} shape")
+    return c.value, t.value, r.value
 
 
 def _composite_args(name, records, row_begin, row_end, ntiles, tile_w, dev):
@@ -904,7 +938,9 @@ def _composite_tail_call(records, row_begin, row_end, t_entry, ntx: int,
     """K3 wrapper: (planes (4, ntiles, pixd) f32 = r, g, b, absolute T;
     exec (ntiles,) i32), initialised for every tile (a tile with no rows,
     or skipped at entry, keeps rgb 0 and its entry T). CPU tensors take
-    the plain version; CUDA tensors launch the kernel (or raise)."""
+    the plain version; CUDA tensors launch the kernel's two passes (or
+    raise), which need row ranges that ascend with the tile index and do
+    not overlap, as every packed layout here does."""
     dev = records.device
     if dev.type == "cpu":
         return _composite_tail_plain(records, row_begin, row_end, t_entry,
@@ -918,12 +954,16 @@ def _composite_tail_call(records, row_begin, row_end, t_entry, ntx: int,
     _cuda.check_arg(t_entry, "t_entry", _F32, (ntiles, pixd), dev)
     planes = torch.empty((4, ntiles, pixd), dtype=_F32, device=dev)
     exec_ = torch.empty(ntiles, dtype=_I32, device=dev)
+    # each chunk's partials between the kernel's two passes, one slot per
+    # (tile, chunk): at most ceil(nrows/128) + ntiles
+    scratch = torch.empty((-(-records.shape[0] // CHUNK) + ntiles, 4, pixd),
+                          dtype=_F32, device=dev)
     with torch.cuda.device(dev):
         err = _cuda.lib().gs_composite_tail(
             records.data_ptr(), records.shape[0], row_begin.data_ptr(),
             row_end.data_ptr(), t_entry.data_ptr(), planes.data_ptr(),
             exec_.data_ptr(), ntiles, ntx, tile_w, decim,
-            torch.cuda.current_stream(dev).cuda_stream)
+            torch.cuda.current_stream(dev).cuda_stream, scratch.data_ptr())
     _cuda.check(err, "K3 tail composite")
     _cuda.launches["k3_composite_tail"] += 1
     return planes, exec_

@@ -1,17 +1,22 @@
-"""Time the composite kernels K2, K4 and K5 at the sizes of the main paths.
+"""Time the composite kernels K2, K3, K4 and K5 at the sizes of the main
+paths.
 
     python3 -m ray_eater_tpu_torch.time_composite [--tree DIR] [--ptxas]
 
 Builds the frames that ``chip_smoke.py`` checks, at 1M splats and
 1920x1080: the fog LOD and exact frames at t=0 (K2 at tile_w 32), the
-inria LOD head at t=0 (K2 at tile_w 64), all from
-``bench_knobs.layout_kwargs``, and the trainer's first frame
-(``gs_trainer.first_frame``, tile_w 128, mpt 256: K2 without gradients,
-K4, and K5 on K4's outputs with the MSE cotangent). Prints, per repeat,
-each kernel's ms by CUDA events over ``REPS`` back-to-back calls of its
-wrapper, then one JSON line. ``--ptxas`` first compiles the composite
-sources with ``-Xptxas -v`` (the port's flags) and prints each kernel's
-registers, spill bytes and shared memory.
+inria LOD head at t=0 (K2 at tile_w 64) and its decimated tail (K3 at
+tile_w 64, decim 4, entered at the head's T decimated by
+``gs._tail_entry``), all from ``bench_knobs.layout_kwargs``, and the
+trainer's first frame (``gs_trainer.first_frame``, tile_w 128, mpt 256:
+K2 without gradients, K4, and K5 on K4's outputs with the MSE
+cotangent). Prints, per repeat, each kernel's ms by CUDA events over
+``REPS`` back-to-back calls of its wrapper; then, per repeat, the device
+time a call of the composite kernels alone (and of the wrapper's other
+kernels) under ``torch.profiler``; then one JSON line.
+``--ptxas`` first compiles the composite sources with ``-Xptxas -v`` (the
+port's flags) and prints each kernel's registers, spill bytes and shared
+memory.
 
 ``--tree`` takes the kernel sources from another checkout's
 ``ray_eater_tpu_torch/csrc`` (same C entry points) and times them under
@@ -68,6 +73,31 @@ def ptxas_lines(cuda, csrc: Path) -> list[dict]:
     return rows
 
 
+def device_ms(torch, fn, a):
+    """Device ms a call of ``fn(*a)`` under ``torch.profiler`` over
+    ``REPS`` calls: (the composite kernels', the wrapper's other kernels',
+    {kernel name: ms} of the composite kernels). The wrapper's host work
+    (its small PyTorch ops and the launch) is left out; the event times
+    above include it where the host is slower than the card."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(REPS):
+            fn(*a)
+        torch.cuda.synchronize()
+    other, kern = 0.0, {}
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA or e.is_user_annotation:
+            continue
+        ms = e.self_device_time_total / 1e3 / REPS
+        name = re.search(r"(\w+_kernel)\b", e.key)
+        if name and ("composite" in name[1] or "tail_" in name[1]):
+            kern[name[1]] = kern.get(name[1], 0.0) + ms
+        else:
+            other += ms
+    return sum(kern.values()), other, kern
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--ptxas", action="store_true")
@@ -110,10 +140,17 @@ def main(argv=None) -> int:
             lay = gs._frame_layout(cloud, view, proj, W, H, **layout_kwargs(
                 knobs, exact, W, H, dev))
             b = lay.binned
-            calls[f"K2 {scene} {label}"] = (gs._composite_call, (
-                lay.records, b.row_begin, b.row_end, lay.ntx, lay.nty,
-                lay.tile_w))
-        del cloud, lay, b
+            head = (lay.records, b.row_begin, b.row_end, lay.ntx, lay.nty,
+                    lay.tile_w)
+            calls[f"K2 {scene} {label}"] = (gs._composite_call, head)
+            if scene == "inria":      # chip_smoke.py's check_k3
+                decim = knobs["lod_tail_d"]
+                td = gs._tail_entry(gs._composite_call(*head)[0][3],
+                                    b.visited, lay.tile_w, decim)
+                calls[f"K3 {scene} tail"] = (gs._composite_tail_call, (
+                    lay.records_tl, b.row_begin_tl, b.row_end_tl, td,
+                    lay.ntx, lay.nty, lay.tile_w, decim))
+        del cloud, lay, b, head
     torch.cuda.empty_cache()
 
     _, targs, (planes, ex, ck, off), dplanes, _ = gs_trainer.first_frame(
@@ -139,7 +176,21 @@ def main(argv=None) -> int:
             times[label].append(e0.elapsed_time(e1) / REPS)
         print(f"repeat {r}: " + ", ".join(
             f"{k} {v[-1]:.4f} ms" for k, v in times.items()), flush=True)
+    device = {k: [] for k in calls}
+    for r in range(REPEAT):
+        for label, (fn, a) in calls.items():
+            device[label].append(device_ms(torch, fn, a))
+        print(f"device repeat {r} (composite kernels; the wrapper's other "
+              "kernels): " + ", ".join(f"{k} {v[-1][0]:.4f} ({v[-1][1]:.4f})"
+                                       for k, v in device.items()),
+              flush=True)
+    for k, v in device.items():
+        if len(v[-1][2]) > 1:
+            print(f"device repeat {REPEAT - 1}, {k}: " + ", ".join(
+                f"{n} {ms:.4f}" for n, ms in v[-1][2].items()), flush=True)
     print(json.dumps({"csrc": str(csrc), "card": card, "ms": times,
+                      "device_ms": {k: [d[0] for d in v]
+                                    for k, v in device.items()},
                       "ptxas": ptx}))
     return 0
 

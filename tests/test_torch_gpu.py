@@ -10,17 +10,21 @@ suite's conftest imports JAX, which this file does not need).
 
 K2 and K5 also run on a 3x2-tile layout built by hand at tile_w 32, 64
 and 128: a list over three 128-row chunks from an unaligned row_begin, a
-tile that saturates in its second chunk, tiles with no rows.
+tile that saturates in its second chunk, tiles with no rows; K4 on the
+same layout with that tile's blanket split so that the CTAs of its
+cluster disagree after the first chunk.
 
 Tolerances: K1 floats within rtol 1e-5 and integers equal on all but
-1e-4 of the splats (off by at most 1); K2, K3 and K4 planes (and K4's
-checkpoints) within 2e-3 max abs and 1e-5 mean abs (running product vs
-cumprod), exec equal on ≥ 99.9% of tiles; K5 within 1e-4 × the plain
-version's largest |gradient| (reassociated sums, global atomics in no
-fixed order); K6 and K7 winner ids equal and λ0/λ1/depth within 1e-6
-where they agree (the same operations in the same order, --fmad=false),
-K8 equal, K9 within 1e-6, K10 equal; SH colours on CUDA within 1e-6 of
-the CPU's (the direction's norm and the products may round differently).
+1e-4 of the splats (off by at most 1); K2, K3 and K4 planes within 2e-3
+max abs and 1e-5 mean abs (running product vs cumprod; K3 merges chunks
+composited from T = 1), exec equal on ≥ 99.9% of tiles, K4's
+checkpoints within 1e-6 (the same running product on both sides); K5
+within 1e-4 × the plain version's largest |gradient| (reassociated sums,
+global atomics in no fixed order); K6 and K7 winner ids equal and
+λ0/λ1/depth within 1e-6 where they agree (the same operations in the
+same order, --fmad=false), K8 equal, K9 within 1e-6, K10 equal; SH
+colours on CUDA within 1e-6 of the CPU's (the direction's norm and the
+products may round differently).
 """
 
 import numpy as np
@@ -83,11 +87,15 @@ CRAFTED_EXEC = [300, 246, 0, 5, 0, 0]
 CRAFTED_CHUNKS = [3, 2, 0, 1, 0, 0]
 
 
-def _crafted_layout(dev, tile_w):
+def _crafted_layout(dev, tile_w, halves=False):
     """K2's arguments on a frame of 3x2 tiles built by hand from a seed:
     random small Gaussians (sigma 0.5-4 px, opacity 0.05-0.6) over each
     tile with rows, and in tile 1 eight rows of a wide blanket at opacity
-    0.995 (alpha clamped at 0.99) that take every sample below T = 1e-4."""
+    0.995 (alpha clamped at 0.99) that take every sample below T = 1e-4.
+    With ``halves`` the blanket is three layers of one-pixel-high strips
+    (conic c = 20: below 1/255 a row away) instead: over sample rows 0-15
+    20 rows into tile 1's list (its first chunk), over rows 16-31 130 rows
+    in (its second)."""
     ntx, nty = 3, 2
     rng = np.random.RandomState(tile_w)
     rec = np.zeros((800, 12), np.float32)
@@ -107,8 +115,16 @@ def _crafted_layout(dev, tile_w):
         rec[b:e, 2:5] = np.stack([d, -off, a], 1) / det[:, None]
         rec[b:e, 5] = rng.uniform(0.05, 0.6, n)
         rec[b:e, 6:9] = rng.rand(n, 3)
-    blanket = slice(CRAFTED_SPANS[1][0] + 130, CRAFTED_SPANS[1][0] + 138)
-    rec[blanket, :6] = (1.5 * tile_w, 16.0, 1e-6, 0.0, 1e-6, 0.995)
+    b1 = CRAFTED_SPANS[1][0]
+    if halves:
+        for at, y0 in ((b1 + 20, 0), (b1 + 130, 16)):
+            y = np.repeat(np.arange(y0, y0 + 16) + 0.5, 3)
+            strips = rec[at:at + len(y)]
+            strips[:, :6] = (1.5 * tile_w, 0.0, 1e-6, 0.0, 20.0, 0.995)
+            strips[:, 1] = y
+    else:
+        rec[b1 + 130:b1 + 138, :6] = (1.5 * tile_w, 16.0, 1e-6, 0.0, 1e-6,
+                                      0.995)
     span = torch.tensor(CRAFTED_SPANS, dtype=torch.int32, device=dev)
     return (torch.from_numpy(rec).to(dev), span[:, 0].contiguous(),
             span[:, 1].contiguous(), ntx, nty, tile_w)
@@ -163,10 +179,11 @@ def inria():
 
 
 @pytest.mark.parametrize("decim", [1, 2, 4])
-def test_k3_matches_plain(inria, decim):
+@pytest.mark.parametrize("tile_w", [32, 64, 128])
+def test_k3_matches_plain(inria, tile_w, decim):
     cloud, knobs, view, proj = inria
-    lay = gs._frame_layout(cloud, view, proj, W, H, **layout_kwargs(
-        knobs, False, W, H, cloud.means.device))
+    lay = gs._frame_layout(cloud, view, proj, W, H, **dict(layout_kwargs(
+        knobs, False, W, H, cloud.means.device), tile_w=tile_w))
     b, tw = lay.binned, lay.tile_w
     head, _ = gs._composite_call(lay.records, b.row_begin, b.row_end,
                                  lay.ntx, lay.nty, tw)
@@ -179,6 +196,8 @@ def test_k3_matches_plain(inria, decim):
     err = (pk - pp).abs()
     assert float(err.max()) <= 2e-3 and float(err.mean()) <= 1e-5
     assert float((ek == ep).float().mean()) >= 0.999
+    ctas, threads, resident = gs._composite_shape(3, tw, decim)
+    assert ctas >= 2 and 32 <= threads <= 1024 and resident >= ctas
 
 
 def test_k1_at_the_coarse_radius_ceiling(inria):
@@ -208,9 +227,11 @@ def test_inria_render_counts_launches(inria, exact):
                                   k3_composite_tail=0 if exact else 1)
 
 
-@pytest.mark.parametrize("tile_w", [32, 128])
-def test_k4_matches_plain(scene, tile_w):
-    args = _k2_args(scene, "lod256", tile_w)
+def _assert_k4_matches_plain(args):
+    """K4 vs its plain version on ``args``: planes within 2e-3 max and
+    1e-5 mean abs, exec equal on ≥ 99.9% of tiles, the checkpoint rows of
+    the chunks both ran within 1e-6 (T before a chunk: the same running
+    product); returns K4's exec and the plain version's."""
     pk, ek, ck, off = gs._composite_call_ckpt(*args)
     pp, ep, cp, offp = gs._composite_ckpt_plain(*args)
     err = (pk - pp).abs()
@@ -225,7 +246,35 @@ def test_k4_matches_plain(scene, tile_w):
                                                    device=off.device)
                       for t in torch.nonzero(nex).flatten().tolist()])
     assert rows.numel() > 0
-    assert float((ck[rows] - cp[rows]).abs().max()) <= 2e-3
+    assert float((ck[rows] - cp[rows]).abs().max()) <= 1e-6
+    cluster, threads, resident = gs._composite_shape(4, args[-1])
+    assert (32 * args[-1]) % (cluster * threads) == 0
+    assert resident >= cluster
+    return ek, ep
+
+
+@pytest.mark.parametrize("tile_w", [32, 64, 128])
+def test_k4_matches_plain(scene, tile_w):
+    _assert_k4_matches_plain(_k2_args(scene, "lod256", tile_w))
+
+
+@pytest.mark.parametrize("tile_w", [32, 64, 128])
+def test_k4_cluster_vote_stops_mid_list(tile_w):
+    # tile 1 of the crafted layout with its blanket split in two: the top
+    # 16 sample rows saturate in its first chunk, the bottom 16 in its
+    # second. K4's CTAs that own only top rows vote to stop after the first
+    # chunk and must run the second with the others; the tile stops there,
+    # one chunk before its list ends
+    args = _crafted_layout(_cuda(), tile_w, halves=True)
+    ek, ep = _assert_k4_matches_plain(args)
+    assert ep.tolist() == CRAFTED_EXEC and ek.tolist() == CRAFTED_EXEC
+    begin, _, first, nch = gs._chunk_spans(args[1], args[2],
+                                           args[0].shape[0])
+    assert gs._executed_chunks(begin, first, ek).tolist() == CRAFTED_CHUNKS
+    assert int(nch[1]) == 3
+    _, _, ck, off = gs._composite_call_ckpt(*args)
+    t1 = ck[int(off[1]) + 1].reshape(32, tile_w)   # T entering chunk 1
+    assert float(t1[:16].max()) < 1e-4 and float(t1[16:].min()) > 1e-4
 
 
 @pytest.mark.parametrize("layout", ["lod256", "crafted"])

@@ -226,6 +226,44 @@ def test_composite_tail_plain_matches_jax(tail_layout, decim):
     np.testing.assert_array_equal(p[3, ~vis_t], td[~vis_t])
 
 
+@pytest.mark.parametrize("decim", [1, 2, 4])
+def test_composite_tail_merged_matches_plain(tail_layout, decim):
+    """K3's chunk-then-merge order (``_composite_tail_merged``, the
+    kernel's plain twin) against the plain version: the colours within
+    1e-6 (reassociation), T and exec equal, on a frame where one tile
+    saturates inside its tail and one is entered saturated; and on an entry
+    T saturated everywhere, where no tile runs."""
+    L = tail_layout
+    ntx, nty = L["ntx"], L["nty"]
+    nt = ntx * nty
+    pixd = (gs.TILE_H // decim) * (TW // decim)
+    args = [torch.from_numpy(L[k]) for k in ("packed", "begin", "end")]
+    rng = np.random.RandomState(20 + decim)
+    td = (0.2 + 0.8 * rng.rand(nt, pixd)).astype(np.float32)
+    td[np.flatnonzero(L["kept_tl"] > 0)[0]] = 5e-5
+    # entered just above saturation at the sample that the first chunk
+    # darkens most, below it elsewhere: saturates after that chunk
+    sat = np.flatnonzero(L["kept_tl"] > gs.CHUNK)[0]
+    probe, _ = gs._composite_tail_plain(*args, torch.ones(nt, pixd), ntx,
+                                        nty, TW, decim)
+    td[sat] = 5e-5
+    td[sat, int(probe[3, sat].argmin())] = 1.5e-4
+    for entry in (td, np.full((nt, pixd), 5e-5, np.float32)):
+        t = torch.from_numpy(entry)
+        (pm, em) = gs._composite_tail_merged(*args, t, ntx, nty, TW, decim)
+        (pp, ep) = gs._composite_tail_plain(*args, t, ntx, nty, TW, decim)
+        assert pm.shape == (4, nt, pixd)
+        assert float((pm[:3] - pp[:3]).abs().max()) <= 1e-6
+        assert torch.equal(pm[3], pp[3]) and torch.equal(em, ep)
+        if entry is td:
+            ran = em.numpy() > 0
+            assert em[sat] == gs.CHUNK < L["kept_tl"][sat]
+            assert ran.sum() >= 3 and float(pm[:3, ran].abs().max()) > 0
+        else:
+            assert int(em.abs().sum()) == 0 and bool((pm[:3] == 0).all())
+            assert torch.equal(pm[3], t)
+
+
 def test_k3_wrapper_refuses_other_devices():
     meta = dict(device="meta")
     with pytest.raises(ValueError):
