@@ -136,7 +136,7 @@ SUBTILE_MIN_PSNR = 30.0  # subtile sampler frame vs per-pixel gather frame
 # move a knife-edge pixel's winner or a subtile's LOD fraction
 SMALL_RASTER_COLOR = 2e-5
 SMALL_RASTER_SHARE = 1e-3
-FOLD_OPS = 14            # f32 operations per executed (row, pixel) pair
+FOLD_OPS = 14            # f32 operations per evaluated (row, pixel) pair
 SETUP_ROW_BYTES = 16 * 4  # one setup/pack row
 SUBTILE_PIXEL_BYTES = 52  # K9: 9 coordinate planes read, 4 channels written
 
@@ -721,15 +721,6 @@ def adc_path(torch, cuda, gs_trainer):
 
 # ---- raster and sampling: K6-K9 ---------------------------------------------
 
-def pad_rows(torch, depth):
-    """The fold's incoming depth, rows padded with inf to a multiple of 32
-    (as ``raster._raster_call`` pads them)."""
-    hp = -(-depth.shape[0] // 32) * 32
-    pad = torch.full((hp - depth.shape[0], depth.shape[1]), float("inf"),
-                     device=depth.device)
-    return torch.cat([depth, pad]).contiguous()
-
-
 def fold_compare(torch, k, p, mask, label):
     """K6/K7 outputs against their plain version on ``mask``: winner ids
     (and K7's slots) equal, floats within RASTER_TOL where ids agree.
@@ -762,10 +753,33 @@ def raster_record(torch, name, source, replaces, call, plain, args,
     return d
 
 
+def cull_log(torch, name, label, fs, twin, plain, dense_pairs):
+    """Hold a culled twin (``raster._fold_culled`` on the card's inputs
+    with the kernel's footprint, ``fs.foot``: the fold without the (row,
+    warp footprint) pairs the kernel skips) to the plain fold's outputs;
+    log the kernel's shape ``fs`` and the twin's skip share against the
+    dense fold's ``dense_pairs`` (row, pixel) evaluations. Returns the
+    share."""
+    outs, skipped, pairs = twin[0], int(twin[1].sum()), int(twin[2].sum())
+    require(all(bool(torch.equal(a, b)) for a, b in zip(outs, plain)),
+            f"{name} [{label}]: the culled twin differs from the plain fold")
+    ops = dense_pairs * FOLD_OPS
+    (fw, fh), (cw, ch) = fs.foot, fs.region
+    log(f"{name} cull [{label}]: {skipped} of {pairs} (live row, {fw}x{fh} "
+        f"warp footprint) pairs skipped ({skipped / max(pairs, 1):.4f}); "
+        f"dense-fold work {ops} f32 ops ({ops / F32_FLOPS * 1e3:.4f} ms at "
+        f"the f32 rate), culled fold "
+        f"{(pairs - skipped) * fw * fh * FOLD_OPS} f32 ops; {name} runs "
+        f"{fs.ctas} CTAs of {fs.threads} threads a tile ({cw}x{ch} px "
+        f"each), {fs.resident} resident on the card")
+    return skipped / max(pairs, 1)
+
+
 def check_k6(torch, raster, ds, depth, w, h, mode, label, reps):
     """K6 vs its plain version on one draw: every valid setup column
-    folded into every tile. Returns (outputs, record)."""
-    dinit = pad_rows(torch, depth)
+    folded into every tile; its culled twin's skip share. Returns
+    (outputs, record)."""
+    dinit = raster._pad_rows(depth)
     n = raster._fold_bound(ds.inv_w.shape[0], ds.setup.shape[1])
     args = (ds.setup, dinit, n, float(w), float(h), mode)
     k = raster._raster_dense_k6(*args)
@@ -777,22 +791,17 @@ def check_k6(torch, raster, ds, depth, w, h, mode, label, reps):
     hp, wp = dinit.shape
     log(f"K6 vs plain [{label}]: {valid} valid of {n} columns over "
         f"{hp}x{wp} px, {int((k[1] >= 0).sum())} px won; max abs {err:.3e}")
+    fs = raster._fold_shape(6, mode)
+    cull_log(torch, "K6", label, fs,
+             raster._raster_dense_culled(*args, foot=fs.foot), p,
+             valid * hp * wp)
+    # bound: the setup columns read once, the incoming depth read and
+    # four planes written once
     return k, raster_record(
         torch, "K6 raster", "ray_eater_tpu_torch/csrc/raster.cu",
         "ray_eater_tpu/ops/raster.py:250", raster._raster_dense_k6,
         raster._raster_dense_plain, args, err,
-        n * SETUP_ROW_BYTES + hp * wp * 5 * 4,
-        valid * hp * wp * FOLD_OPS, label, reps)
-
-
-def draw_setup(sc, t, pass_=-1):
-    """The cleared framebuffer and the draw setup of pass ``pass_`` of a
-    ``raster_scenes`` scene's frame at time ``t``."""
-    from ray_eater_tpu_torch.core.resources import create_framebuffer
-    from ray_eater_tpu_torch.ops import raster
-    fb = create_framebuffer(sc.width, sc.height, device=sc.device)
-    return fb, raster._vertex_stage(sc.passes[pass_][0], sc.mesh,
-                                    sc.uniforms(t), fb)
+        n * SETUP_ROW_BYTES + hp * wp * 5 * 4, 0, label, reps)
 
 
 def check_grid_kernels(torch, raster, sampling, sc, t, reps):
@@ -800,9 +809,10 @@ def check_grid_kernels(torch, raster, sampling, sc, t, reps):
     K9 vs its plain version on one frame of the grid10k scene ``sc``;
     prints the frame's binning and fallback numbers. Returns the K7, K8,
     K9 records."""
+    from ray_eater_tpu_torch import raster_scenes as rs
     m, (pipe, res), w, h = sc.mesh, sc.passes[0], sc.width, sc.height
-    fb, ds = draw_setup(sc, t)
-    dinit = pad_rows(torch, fb.depth)
+    fb, ds = rs.draw_setup(sc, t)
+    dinit = raster._pad_rows(fb.depth)
     hp, wp = dinit.shape
     ntx, nty = wp // raster.TILE_W, hp // raster.TILE_H
     ft = raster._feature_table(ds.tri_vary, ds.inv_w)
@@ -830,13 +840,21 @@ def check_grid_kernels(torch, raster, sampling, sc, t, reps):
         f"the grid10k frame: winner ids equal {same}; K7 vs plain max abs "
         f"{err7:.3e} on {int(vis.sum())} visited px")
     require(same, "K7 and K6 winner ids differ on the grid10k frame")
+    fs = raster._fold_shape(7, less)
+    outs, skipped, pairs = raster._raster_binned_culled(*args, foot=fs.foot)
+    pix = raster.TILE_H * raster.TILE_W
+    cull_log(torch, "K7", "grid10k frame", fs,
+             ([a[vis] for a in outs], skipped, pairs), [a[vis] for a in p],
+             rows * pix)
+    # bound: the tiles' rows and ranges read once; on the visited tiles
+    # (the kernel writes no other), the incoming depth read and five
+    # planes written once
     r7 = raster_record(
         torch, "K7 raster binned", "ray_eater_tpu_torch/csrc/raster.cu",
         "ray_eater_tpu/ops/raster.py:434", raster._raster_binned_k7,
         raster._raster_binned_plain, args, err7,
-        rows * SETUP_ROW_BYTES + ntx * nty * 8 + hp * wp * 6 * 4,
-        rows * raster.TILE_H * raster.TILE_W * FOLD_OPS, "grid10k frame",
-        reps)
+        rows * SETUP_ROW_BYTES + ntx * nty * 8
+        + int(b.visited.sum()) * pix * 6 * 4, 0, "grid10k frame", reps)
 
     slot = k[4]
     fk = raster._shade_fetch_k8(b.fpack, slot, b.visited)
@@ -892,7 +910,7 @@ def check_raster_small(torch, rs, devs=("cuda", "cpu")):
     for dev in devs:
         sc = rs.scene("grid288", dev)
         f = sc.frame(0.4)
-        fb, ds = draw_setup(sc, 0.4)
+        fb, ds = rs.draw_setup(sc, 0.4)
         (_, tid, _, _, _), _ = raster._raster_draw(sc.passes[0][0], ds, fb)
         out.append((f.color[:h, :w].cpu(), tid[:h, :w].cpu()))
     (cg, ig), (cc, ic) = out
@@ -1320,11 +1338,11 @@ def run() -> int:
     from ray_eater_tpu_torch.ops import raster, sampling
     less = raster._mode_bits(True, False, False, False)
     sc = rs.scene("basic_planes", dev)
-    fb, ds = draw_setup(sc, 0.5)
+    fb, ds = rs.draw_setup(sc, 0.5)
     check_k6(torch, raster, ds, fb.depth, sc.width, sc.height, less,
              "basic_planes frame t=0.5", reps=5)
     sc = rs.scene("multipass", dev)
-    fb, ds = draw_setup(sc, 0.5)      # both passes share the vertex stage
+    fb, ds = rs.draw_setup(sc, 0.5)   # both passes share the vertex stage
     pre, _ = check_k6(torch, raster, ds, fb.depth, sc.width, sc.height, less,
                       "multipass prepass t=0.5", reps=20)
     _, k6 = check_k6(torch, raster, ds, pre[0][:sc.height], sc.width,

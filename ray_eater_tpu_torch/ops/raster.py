@@ -33,6 +33,7 @@ decides the same winner.
 
 from __future__ import annotations
 
+import ctypes
 from typing import Any, NamedTuple
 
 import torch
@@ -53,6 +54,11 @@ _PIX = TILE_H * TILE_W
 _ROWS = 16
 (_A0, _B0, _C0, _A1, _B1, _C1, _AZ, _BZ, _CZ, _VALID,
  _XMIN, _XMAX, _YMIN, _YMAX, _GID) = range(15)
+
+#: a warp's footprint in K6/K7, the pixels each cull decision covers: the
+#: default of :func:`_fold_culled` on the CPU; the kernels report theirs
+#: (:func:`_fold_shape`)
+_FOOT_W, _FOOT_H = 32, 8
 
 #: clipped-triangle counts above this bin by tile (K7 + K8) instead of
 #: folding every triangle into every tile (K6)
@@ -286,6 +292,94 @@ def _fold_plain(rows, live, gids, px, py, dinit, width, height, mode,
     return cur, win, gid, l0, l1
 
 
+def _plane_misses(q, x0, x1, y0, y1):
+    """The kernels' cull test (``csrc/raster.cu`` ``misses``, the same
+    float32 operations): True where the setup row ``q[..., :9]`` provably
+    covers no pixel centre of the rectangle [x0, x1] x [y0, y1] (positive
+    coordinates; everything broadcasts against ``q[..., 0]``). The file
+    header there derives the widening E."""
+    scale = torch.tensor(2.0 ** -20, dtype=_F32, device=q.device)
+    tiny = torch.tensor(2.0 ** -126, dtype=_F32, device=q.device)
+    one = torch.tensor(1.0, dtype=_F32, device=q.device)
+
+    def span(a, b, c):
+        up_a, up_b = a > 0, b > 0
+        hi = (a * torch.where(up_a, x1, x0) + b * torch.where(up_b, y1, y0)
+              + c)
+        lo = (a * torch.where(up_a, x0, x1) + b * torch.where(up_b, y0, y1)
+              + c)
+        e = (a.abs() * x1 + b.abs() * y1 + c.abs()) * scale + tiny
+        return lo, hi, e
+
+    lo0, hi0, e0 = span(q[..., _A0], q[..., _B0], q[..., _C0])
+    lo1, hi1, e1 = span(q[..., _A1], q[..., _B1], q[..., _C1])
+    loz, hiz, ez = span(q[..., _AZ], q[..., _BZ], q[..., _CZ])
+    return ((hi0 < -e0) | (hi1 < -e1) | ((lo0 - e0) + (lo1 - e1) > one)
+            | (hiz < -ez) | (loz - ez > one))
+
+
+def _fold_culled(rows, live, gids, px, py, dinit, width, height, mode,
+                 foot=(_FOOT_W, _FOOT_H)):
+    """The fold as K6 and K7 run it: :func:`_fold_plain` per warp
+    footprint (``foot``, (columns, rows) of a tile's pixels), without the
+    live rows that :func:`_plane_misses` rejects for the footprint; then
+    the LESS_EQUAL repair: a pixel whose key is still inf takes the
+    group's last live row, its λ0 and λ1 evaluated at the pixel. Groups
+    are whole tiles (``px``, ``py``, ``dinit`` (G, 4096) in tile layout;
+    ``rows``/``live``/``gids`` as for :func:`_fold_plain`).
+
+    Returns the outputs of :func:`_fold_plain`, then the count of skipped
+    (live row, footprint) pairs and the count of all of them, each (G,
+    footprints), row-major in the tile. Tests and ``chip_smoke.py`` hold
+    it bit-equal to :func:`_fold_plain` and read the counts (on the card,
+    with the kernels' ``_fold_shape().foot``); the main path never calls
+    it."""
+    fw, fh = foot
+    if TILE_W % fw or TILE_H % fh:
+        raise ValueError(f"footprint {fw}x{fh} does not tile a tile")
+    g = px.shape[0]
+    ny, nx = TILE_H // fh, TILE_W // fw
+    nf, fp = ny * nx, fh * fw
+
+    def by_foot(a):                  # (G, 4096) -> (G, nf, fp)
+        return a.reshape(g, ny, fh, nx, fw).transpose(2, 3).reshape(g, nf,
+                                                                     fp)
+
+    def by_tile(a):                   # (G, nf, fp) -> (G, 4096)
+        return a.reshape(g, ny, nx, fh, fw).transpose(2, 3) \
+            .reshape(g, TILE_H * TILE_W)
+
+    fx, fy = by_foot(px), by_foot(py)
+    q = rows[:, None]                                      # (G|1, 1, R, 16)
+    skip = _plane_misses(q, *(t.unsqueeze(-1) for t in (
+        fx.amin(-1), fx.amax(-1), fy.amin(-1), fy.amax(-1))))
+    nr = rows.shape[1]
+    lv = live[:, None].expand(g, nf, nr)
+    pairs, skipped = lv.sum(-1), (lv & skip).sum(-1)
+
+    def per_foot(a):
+        return a if a.shape[0] == 1 else a.repeat_interleave(nf, 0)
+
+    key, win, gid, l0, l1 = (a.reshape(g, nf, fp) for a in _fold_plain(
+        per_foot(rows), (lv & ~skip).reshape(g * nf, nr), per_foot(gids),
+        fx.reshape(g * nf, fp), fy.reshape(g * nf, fp),
+        by_foot(dinit).reshape(g * nf, fp), width, height, mode))
+    if mode & _LESS_EQUAL:
+        idx = torch.arange(nr, device=px.device)
+        last = torch.where(live, idx, -1).amax(1)         # (G|1,)
+        at = torch.arange(last.shape[0], device=px.device)
+        lr = rows[at, last.clamp(min=0)][:, None, None]   # (G|1, 1, 1, 16)
+        fix = (key == float("inf")) & (last >= 0)[:, None, None]
+        win = torch.where(fix, last[:, None, None], win)
+        gid = torch.where(fix, gids[at, last.clamp(min=0)][:, None, None],
+                          gid)
+        l0 = torch.where(fix, lr[..., _A0] * fx + lr[..., _B0] * fy
+                         + lr[..., _C0], l0)
+        l1 = torch.where(fix, lr[..., _A1] * fx + lr[..., _B1] * fy
+                         + lr[..., _C1], l1)
+    return tuple(by_tile(a) for a in (key, win, gid, l0, l1)), skipped, pairs
+
+
 def _tile_pixels(ntx: int, nty: int, dev):
     """Pixel-centre planes (ntiles, 4096) of every tile, tile-major."""
     r = torch.arange(TILE_H, dtype=_F32, device=dev)[:, None].expand(
@@ -320,11 +414,10 @@ def _fold_bound(n_tris: int | None, tpad: int) -> int:
     return tpad
 
 
-def _raster_dense_plain(setup, depth_init, ncols: int, width: float,
-                        height: float, mode: int):
-    """Plain version of K6: every setup column below ``ncols`` folded into
-    every tile of the (Hp, Wp) frame (Hp a multiple of 32). Returns
-    (depth/key, winner column i32, λ0, λ1), each (Hp, Wp)."""
+def _dense_fold_inputs(setup, depth_init, ncols: int):
+    """The dense fold's groups: every setup column below ``ncols`` for
+    every tile. Returns the :func:`_fold_plain` inputs (rows, live, gids,
+    px, py, dinit) and (ntx, nty)."""
     hp, wp = depth_init.shape
     ntx, nty = wp // TILE_W, hp // TILE_H
     dev = setup.device
@@ -332,10 +425,31 @@ def _raster_dense_plain(setup, depth_init, ncols: int, width: float,
     live = rows[:, :, _VALID] > 0.5
     gids = torch.arange(ncols, dtype=_I32, device=dev)[None]
     px, py = _tile_pixels(ntx, nty, dev)
-    key, _, gid, l0, l1 = _fold_plain(rows, live, gids, px, py,
-                                      _tiles(depth_init, ntx, nty), width,
-                                      height, mode)
+    return (rows, live, gids, px, py, _tiles(depth_init, ntx, nty)), \
+        (ntx, nty)
+
+
+def _raster_dense_plain(setup, depth_init, ncols: int, width: float,
+                        height: float, mode: int):
+    """Plain version of K6: every setup column below ``ncols`` folded into
+    every tile of the (Hp, Wp) frame (Hp a multiple of 32). Returns
+    (depth/key, winner column i32, λ0, λ1), each (Hp, Wp)."""
+    fin, (ntx, nty) = _dense_fold_inputs(setup, depth_init, ncols)
+    key, _, gid, l0, l1 = _fold_plain(*fin, width, height, mode)
     return tuple(_untile(a, ntx, nty) for a in (key, gid, l0, l1))
+
+
+def _raster_dense_culled(setup, depth_init, ncols: int, width: float,
+                         height: float, mode: int, foot=(_FOOT_W, _FOOT_H)):
+    """K6's fold as the kernel culls it (:func:`_fold_culled` with the
+    warp footprint ``foot``): the outputs of :func:`_raster_dense_plain`,
+    then the skipped and all (live row, footprint) pair counts of each
+    tile's footprints (ntiles, footprints)."""
+    fin, (ntx, nty) = _dense_fold_inputs(setup, depth_init, ncols)
+    (key, _, gid, l0, l1), skipped, pairs = _fold_culled(
+        *fin, width, height, mode, foot)
+    return tuple(_untile(a, ntx, nty) for a in (key, gid, l0, l1)), \
+        skipped, pairs
 
 
 def _raster_dense_k6(setup, depth_init, ncols: int, width: float,
@@ -368,12 +482,11 @@ def _raster_dense_k6(setup, depth_init, ncols: int, width: float,
     return tuple(outs)
 
 
-def _raster_binned_plain(pack, row_begin, row_end, depth_init, width: float,
-                         height: float, mode: int):
-    """Plain version of K7: each tile folds its packed rows
-    [row_begin, row_end) in order. Returns (depth/key, winner id i32 (the
-    rows' GID), λ0, λ1, winner pack slot i32), each (Hp, Wp); tiles with
-    no rows hold the fold's initial state (callers mask them)."""
+def _binned_fold_inputs(pack, row_begin, row_end, depth_init):
+    """The binned fold's groups: each tile's packed rows [row_begin,
+    row_end), padded to the longest. Returns the :func:`_fold_plain`
+    inputs (rows, live, gids, px, py, dinit), each row's pack slot
+    (ntiles, R) and (ntx, nty)."""
     hp, wp = depth_init.shape
     ntx, nty = wp // TILE_W, hp // TILE_H
     dev = pack.device
@@ -385,13 +498,66 @@ def _raster_binned_plain(pack, row_begin, row_end, depth_init, width: float,
     live = (j[None] < count[:, None]) & (rows[:, :, _VALID] > 0.5)
     gids = rows[:, :, _GID].to(_I32)
     px, py = _tile_pixels(ntx, nty, dev)
-    key, win, gid, l0, l1 = _fold_plain(rows, live, gids, px, py,
-                                        _tiles(depth_init, ntx, nty), width,
-                                        height, mode)
+    return (rows, live, gids, px, py, _tiles(depth_init, ntx, nty)), slot, \
+        (ntx, nty)
+
+
+def _binned_outputs(fold, slot, ntx: int, nty: int):
+    """(depth/key, gid, λ0, λ1, winner pack slot) images of a binned
+    fold's (key, row index, gid, λ0, λ1)."""
+    key, win, gid, l0, l1 = fold
     wslot = torch.where(win >= 0,
                         torch.gather(slot, 1, win.clamp(min=0)), -1)
     return tuple(_untile(a, ntx, nty)
                  for a in (key, gid, l0, l1, wslot.to(_I32)))
+
+
+def _raster_binned_plain(pack, row_begin, row_end, depth_init, width: float,
+                         height: float, mode: int):
+    """Plain version of K7: each tile folds its packed rows
+    [row_begin, row_end) in order. Returns (depth/key, winner id i32 (the
+    rows' GID), λ0, λ1, winner pack slot i32), each (Hp, Wp); tiles with
+    no rows hold the fold's initial state (callers mask them)."""
+    fin, slot, (ntx, nty) = _binned_fold_inputs(pack, row_begin, row_end,
+                                                depth_init)
+    return _binned_outputs(_fold_plain(*fin, width, height, mode), slot,
+                           ntx, nty)
+
+
+def _raster_binned_culled(pack, row_begin, row_end, depth_init,
+                          width: float, height: float, mode: int,
+                          foot=(_FOOT_W, _FOOT_H)):
+    """K7's fold as the kernel culls it (:func:`_fold_culled` with the
+    warp footprint ``foot``): the outputs of :func:`_raster_binned_plain`,
+    then the skipped and all (live row, footprint) pair counts of each
+    tile's footprints (ntiles, footprints)."""
+    fin, slot, (ntx, nty) = _binned_fold_inputs(pack, row_begin, row_end,
+                                                depth_init)
+    fold, skipped, pairs = _fold_culled(*fin, width, height, mode, foot)
+    return _binned_outputs(fold, slot, ntx, nty), skipped, pairs
+
+
+class FoldShape(NamedTuple):
+    """How K6 or K7 covers a tile, as the kernel library reports it."""
+    foot: tuple[int, int]     # a warp's footprint (columns, rows)
+    region: tuple[int, int]   # a CTA's region of a tile (columns, rows)
+    ctas: int                 # CTAs a tile
+    threads: int              # threads a CTA
+    resident: int             # CTAs the card holds at once
+
+
+def _fold_shape(kernel: int, mode: int = 0) -> FoldShape:
+    """The geometry of K6 (``kernel`` 6) or K7 (7) as it runs ``mode``
+    (``raster_fold_shape`` in ``csrc/raster.cu``; builds the kernel
+    library, needs a CUDA device)."""
+    fn = _cuda.lib().raster_fold_shape
+    i, pi = ctypes.c_int, ctypes.POINTER(ctypes.c_int)
+    fn.argtypes, fn.restype = [i, i] + [pi] * 7, i
+    v = [i() for _ in range(7)]
+    _cuda.check(fn(kernel, mode, *(ctypes.byref(x) for x in v)),
+                f"K{kernel} shape")
+    fw, fh, cw, ch, ctas, threads, resident = (x.value for x in v)
+    return FoldShape((fw, fh), (cw, ch), ctas, threads, resident)
 
 
 def _raster_binned_k7(pack, row_begin, row_end, depth_init, width: float,
@@ -571,6 +737,18 @@ def _init_depth(depth_init, depth_test: bool, static_test: bool):
     return torch.full_like(depth_init, float("inf"))
 
 
+def _pad_rows(depth):
+    """The fold's incoming depth: tiles are TILE_H tall, so rows of inf
+    (they fail the scissor test) pad ``depth`` to a multiple of TILE_H;
+    callers slice the outputs back."""
+    hp0, wp = depth.shape
+    hp = max(_pad_to(hp0, TILE_H), TILE_H)
+    if hp == hp0:
+        return depth
+    return torch.cat([depth, torch.full((hp - hp0, wp), float("inf"),
+                                        dtype=_F32, device=depth.device)])
+
+
 def _raster_call_binned(setup, depth_init, width, height, depth_test,
                         last_wins, less_equal=False, static_test=False,
                         feat_table=None):
@@ -600,14 +778,8 @@ def _raster_call(setup, depth_init, width, height, depth_test, last_wins,
     """Returns [depth/key, winner id, λ0, λ1, feats], each (H, W) for the
     (H, W) ``depth_init``; ``feats`` is the (H, W, F) winner-feature plane
     when the binned path ran with a ``feat_table``, else None."""
-    hp0, wp = depth_init.shape
-    # tiles are TILE_H tall: pad rows with inf (they fail the scissor
-    # test) and slice the outputs back
-    hp = max(_pad_to(hp0, TILE_H), TILE_H)
-    if hp != hp0:
-        depth_init = torch.cat([depth_init, torch.full(
-            (hp - hp0, wp), float("inf"), dtype=_F32,
-            device=depth_init.device)])
+    hp0 = depth_init.shape[0]
+    depth_init = _pad_rows(depth_init)
     tpad = setup.shape[1]
     if n_tris is not None and n_tris > _BIN_MIN_TRIS:
         out = _raster_call_binned(setup, depth_init, width, height,

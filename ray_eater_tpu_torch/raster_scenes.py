@@ -4,7 +4,8 @@ profiler and the chip smoke test render, from the procedural checkerboard
 texture, the basic_planes camera and the meshes here (the two planes, the
 multipass quads, the CPU tests' 288-triangle grid and the 10,082-triangle
 measurement grid of ``tools/profile_raster.py``); :func:`frame_loop` times
-a scene's frames.
+a scene's frames; :func:`draw_setup` builds one pass's draw setup, and
+:func:`cull_probe` a hand-made setup of the fold's hard cases.
 """
 
 from __future__ import annotations
@@ -21,7 +22,7 @@ from .core.pipeline import CompareOp, CullMode, GraphicsPipeline, RasterState
 from .core.resources import Sampler, create_framebuffer, texture_from_array
 from .io.image import srgb_to_linear
 from .models.mesh import Mesh, mesh, two_planes
-from .ops.raster import render_mesh
+from .ops import raster
 
 # scene name -> default (width, height): basic_planes' swapchain extent
 # (basic_planes.zig:126-128), the full-HD frames, the CPU-sized small grid
@@ -170,7 +171,7 @@ class RasterScene:
         uni = self.uniforms(t)
         fb = create_framebuffer(self.width, self.height, device=self.device)
         for pipe, res in self.passes:
-            fb = render_mesh(pipe, self.mesh, uni, res, fb)
+            fb = raster.render_mesh(pipe, self.mesh, uni, res, fb)
         return fb
 
 
@@ -203,6 +204,42 @@ def scene(name: str, device="cuda", width: int | None = None,
             depth_only, lit = multipass_pipelines()
             passes = [(depth_only, {}), (lit, {"tex": tex})]
     return RasterScene(name, w, h, m, passes, spin, dev)
+
+
+def draw_setup(sc: RasterScene, t: float, pass_: int = -1):
+    """The cleared framebuffer and the draw setup of pass ``pass_`` of
+    ``sc``'s frame at time ``t``."""
+    fb = create_framebuffer(sc.width, sc.height, device=sc.device)
+    return fb, raster._vertex_stage(sc.passes[pass_][0], sc.mesh,
+                                    sc.uniforms(t), fb)
+
+
+#: :func:`cull_probe`'s frame (powers of two: the viewport maps its
+#: corners exactly) and screen-space corners
+PROBE_EXTENT = (1024, 64)
+PROBE_SLIVER = [[704.5, 40.5], [767.25, 40.5], [735.875, 40.50002]]
+PROBE_ON_CENTRE = [[300.5, 20.5], [420.25, 12.75], [350.0, 60.0]]
+PROBE_BEHIND = [[560.0, 0.0], [1000.0, 8.0], [820.0, 63.0]]
+
+
+def cull_probe(device="cuda") -> torch.Tensor:
+    """The (16, 128) triangle setup, cull mode none, of three triangles on
+    the :data:`PROBE_EXTENT` frame: column 0 a sliver (|area2| ~1.2e-3 at
+    x ~700, z 0.3) whose float planes cover pixel centres outside its
+    bbox, in warp footprints (32x8) that the bbox does not reach; column 1
+    a triangle with a vertex exactly on the pixel centre (300.5, 20.5), z
+    from 0.2 to 0.6; column 2 a large triangle behind both (z 0.7)."""
+    w, h = PROBE_EXTENT
+    xy = np.array(PROBE_SLIVER + PROBE_ON_CENTRE + PROBE_BEHIND, np.float32)
+    clip = np.ones((9, 4), np.float32)
+    clip[:, 0] = xy[:, 0] / np.float32(w / 2) - 1
+    clip[:, 1] = xy[:, 1] / np.float32(h / 2) - 1
+    clip[:, 2] = [0.3, 0.3, 0.3, 0.2, 0.6, 0.4, 0.7, 0.7, 0.7]
+    setup, *_ = raster._triangle_setup(
+        torch.from_numpy(clip).to(device),
+        torch.arange(9, device=device).reshape(3, 3),
+        RasterState(cull_mode=CullMode.NONE), w, h)
+    return setup
 
 
 def frame_loop(render, frames: int, device):

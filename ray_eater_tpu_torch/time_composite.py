@@ -39,14 +39,16 @@ REPEAT = 3     # timed repeats of every kernel
 REPS = 20      # back-to-back calls a repeat
 
 
-def ptxas_lines(cuda, csrc: Path) -> list[dict]:
+def ptxas_lines(cuda, csrc: Path,
+                sources=("gs_composite.cu", "gs_composite_bwd.cu")
+                ) -> list[dict]:
     """Registers, spill stores/loads and shared bytes of every kernel in
-    ``csrc``'s gs_composite.cu and gs_composite_bwd.cu."""
+    ``sources`` of ``csrc``."""
     cuda._BUILD.mkdir(parents=True, exist_ok=True)
     obj = cuda._BUILD / f"ptxas.{os.getpid()}.o"
     filt = shutil.which("cu++filt") or shutil.which("c++filt")
     rows = []
-    for name in ("gs_composite.cu", "gs_composite_bwd.cu"):
+    for name in sources:
         cmd = [cuda._nvcc(), *cuda._FLAGS, "-Xptxas", "-v", "-c", "-o",
                str(obj), str(csrc / name)]
         r = subprocess.run(cmd, capture_output=True, text=True, check=True)
@@ -73,28 +75,38 @@ def ptxas_lines(cuda, csrc: Path) -> list[dict]:
     return rows
 
 
-def device_ms(torch, fn, a):
+def composite_kernel(name: str) -> bool:
+    return "composite" in name or "tail_" in name
+
+
+def device_ms(torch, fn, a, timed=composite_kernel):
     """Device ms a call of ``fn(*a)`` under ``torch.profiler`` over
-    ``REPS`` calls: (the composite kernels', the wrapper's other kernels',
-    {kernel name: ms} of the composite kernels). The wrapper's host work
-    (its small PyTorch ops and the launch) is left out; the event times
-    above include it where the host is slower than the card."""
+    ``REPS`` calls: (the timed kernels', the wrapper's other kernels',
+    {kernel name: ms} of the timed kernels); ``timed`` picks them by name
+    (the composite kernels by default). The wrapper's host work (its small
+    PyTorch ops and the launch) is left out; the event times include it
+    where the host is slower than the card."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(REPS):
-            fn(*a)
-        torch.cuda.synchronize()
-    other, kern = 0.0, {}
-    for e in prof.key_averages():
-        if e.device_type != DeviceType.CUDA or e.is_user_annotation:
-            continue
-        ms = e.self_device_time_total / 1e3 / REPS
-        name = re.search(r"(\w+_kernel)\b", e.key)
-        if name and ("composite" in name[1] or "tail_" in name[1]):
-            kern[name[1]] = kern.get(name[1], 0.0) + ms
-        else:
-            other += ms
+    for _ in range(3):      # a trace can come back without the kernels
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(REPS):
+                fn(*a)
+            torch.cuda.synchronize()
+        other, kern = 0.0, {}
+        for e in prof.key_averages():
+            if e.device_type != DeviceType.CUDA or e.is_user_annotation:
+                continue
+            ms = e.self_device_time_total / 1e3 / REPS
+            name = re.search(r"(\w+_kernel)\b", e.key)
+            if name and timed(name[1]):
+                kern[name[1]] = kern.get(name[1], 0.0) + ms
+            else:
+                other += ms
+        if kern:
+            break
+    else:
+        raise RuntimeError("the profiler saw none of the timed kernels")
     return sum(kern.values()), other, kern
 
 

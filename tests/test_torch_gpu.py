@@ -8,6 +8,13 @@ present and skips when there is none. Run on a GPU machine with
 ``python -m pytest tests/test_torch_gpu.py -m gpu --noconftest`` (the
 suite's conftest imports JAX, which this file does not need).
 
+K6 and K7 also run on the cull probe of ``raster_scenes`` (a sliver that
+covers pixels outside its bbox, a vertex on a pixel centre) and on frames
+whose incoming depth has +inf rows, in all four modes; K6 on the
+basic_planes and compute_drawing draws; K7 against its culled twin
+``raster._fold_culled`` (equal outputs; the kernel reports no skip count),
+whose footprint is the one the kernels report.
+
 K2 and K5 also run on a 3x2-tile layout built by hand at tile_w 32, 64
 and 128: a list over three 128-row chunks from an unaligned row_begin, a
 tile that saturates in its second chunk, tiles with no rows; K4 on the
@@ -341,10 +348,13 @@ def _raster_frame(dev, name="grid", w=W, h=H, t=0.4):
 
 
 def _assert_fold_equal(k, p):
-    ids_k, ids_p = k[1], p[1]
-    assert torch.equal(ids_k, ids_p)
+    """K6/K7 outputs against their plain version: every int plane (winner
+    ids, K7's winner slots) equal, floats within 1e-6 where finite."""
+    assert len(k) == len(p)
     for a, b in zip(k, p):
-        if a.dtype == torch.float32:
+        if a.dtype == torch.int32:
+            assert torch.equal(a, b)
+        else:
             fin = torch.isfinite(b)
             assert torch.equal(torch.isfinite(a), fin)
             assert float((a - b)[fin].abs().max()) <= 1e-6
@@ -387,6 +397,113 @@ def test_k7_k8_match_plain(mode):
     fk = raster._shade_fetch_k8(b.fpack, k[4], b.visited)
     fp = raster._shade_fetch_plain(b.fpack, k[4], b.visited)
     assert torch.equal(fk, fp)
+
+
+def _assert_k6_k7_match_plain(setup, dinit, w, h, mode):
+    """K6 over every setup column and K7 over the setup's binned pack,
+    each against its plain version (K7 on its visited tiles)."""
+    from ray_eater_tpu_torch.ops import raster
+    bits = raster._mode_bits(*mode)
+    args = (setup, dinit, setup.shape[1], float(w), float(h), bits)
+    _assert_fold_equal(raster._raster_dense_k6(*args),
+                       raster._raster_dense_plain(*args))
+    hp, wp = dinit.shape
+    ntx, nty = wp // 128, hp // 32
+    b = raster._bin_triangles(setup, ntx, nty)
+    args = (b.pack, b.row_begin, b.row_end, dinit, float(w), float(h), bits)
+    vis = raster._tile_mask(b.visited, ntx, nty)
+    _assert_fold_equal([a[vis] for a in raster._raster_binned_k7(*args)],
+                       [a[vis] for a in raster._raster_binned_plain(*args)])
+
+
+@pytest.mark.parametrize("mode", RASTER_MODES)
+def test_k6_k7_match_plain_on_the_cull_probe(mode):
+    """A sliver whose float planes cover pixels outside its bbox, a vertex
+    on a pixel centre, and +inf rows in the incoming depth."""
+    from ray_eater_tpu_torch import raster_scenes as rs
+    dev = _cuda()
+    w, h = rs.PROBE_EXTENT
+    dinit = torch.ones((h, w), device=dev)
+    dinit[:, ::3] = 0.5
+    dinit[30:45] = float("inf")
+    _assert_k6_k7_match_plain(rs.cull_probe(dev), dinit, w, h, mode)
+
+
+@pytest.mark.parametrize("mode", RASTER_MODES)
+def test_k6_k7_match_plain_with_inf_depth_rows(mode):
+    from ray_eater_tpu_torch.ops import raster
+    dev = _cuda()
+    ds, _, fb = _raster_frame(dev)
+    dinit = raster._pad_rows(fb.depth).clone()
+    dinit[100:140] = float("inf")
+    dinit[200, 50:400] = float("inf")
+    _assert_k6_k7_match_plain(ds.setup, dinit, W, H, mode)
+
+
+@pytest.mark.parametrize("mode", RASTER_MODES)
+@pytest.mark.parametrize("name", ["basic_planes", "compute_drawing"])
+def test_k6_matches_plain_on_sample_draws(name, mode):
+    from ray_eater_tpu_torch import compute_drawing
+    from ray_eater_tpu_torch import raster_scenes as rs
+    from ray_eater_tpu_torch.core import resources as res
+    from ray_eater_tpu_torch.ops import raster
+    dev = _cuda()
+    if name == "basic_planes":
+        sc = rs.scene(name, dev)
+        fb, ds = rs.draw_setup(sc, 0.5)
+        w, h = sc.width, sc.height
+    else:
+        d = compute_drawing.setup(dev)
+        w, h = d.width, d.height
+        fb = res.create_framebuffer(w, h, device=dev)
+        ds = raster._vertex_stage(d.pipeline, d.quad, {"time": 0.0}, fb)
+    dinit = raster._pad_rows(fb.depth)
+    n = raster._fold_bound(ds.inv_w.shape[0], ds.setup.shape[1])
+    args = (ds.setup, dinit, n, float(w), float(h), raster._mode_bits(*mode))
+    k = raster._raster_dense_k6(*args)
+    assert int((k[1] >= 0).sum()) > 0
+    _assert_fold_equal(k, raster._raster_dense_plain(*args))
+
+
+def test_k7_matches_its_culled_twin():
+    """K7 against ``_fold_culled`` (the plain fold without the pairs the
+    kernel skips, plus its LESS_EQUAL repair) on the card's inputs; the
+    kernel reports no skip count, so the twin's count is checked to be a
+    real share of the pairs."""
+    from ray_eater_tpu_torch.ops import raster
+    dev = _cuda()
+    ds, _, fb = _raster_frame(dev)
+    dinit = raster._pad_rows(fb.depth)
+    hp, wp = dinit.shape
+    b = raster._bin_triangles(ds.setup, wp // 128, hp // 32)
+    vis = raster._tile_mask(b.visited, wp // 128, hp // 32)
+    for mode in RASTER_MODES:
+        args = (b.pack, b.row_begin, b.row_end, dinit, float(W), float(H),
+                raster._mode_bits(*mode))
+        twin, skipped, pairs = raster._raster_binned_culled(
+            *args, foot=raster._fold_shape(7, args[-1]).foot)
+        assert 0 < int(skipped.sum()) < int(pairs.sum())
+        for a, c in zip(raster._raster_binned_k7(*args), twin):
+            assert torch.equal(a[vis], c[vis])
+
+
+def test_k6_k7_shape_is_the_cull_twins():
+    """The geometry K6 and K7 report (``raster_fold_shape``) is the one
+    ``_fold_culled`` assumes on the CPU: the same warp footprint, regions
+    that tile a tile, a warp a footprint, at least a CTA an SM."""
+    from ray_eater_tpu_torch.ops import raster
+    _cuda()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for kernel in (6, 7):
+        for mode in RASTER_MODES:
+            fs = raster._fold_shape(kernel, raster._mode_bits(*mode))
+            assert fs.foot == (raster._FOOT_W, raster._FOOT_H)
+            (cw, ch), (fw, fh) = fs.region, fs.foot
+            assert raster.TILE_W % cw == 0 and raster.TILE_H % ch == 0
+            assert cw % fw == 0 and ch % fh == 0
+            assert fs.ctas == (raster.TILE_W // cw) * (raster.TILE_H // ch)
+            assert fs.threads == 32 * (cw // fw) * (ch // fh)
+            assert fs.resident >= sms
 
 
 def test_k9_matches_plain():
