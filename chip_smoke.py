@@ -33,15 +33,36 @@ kernel against its plain PyTorch version, and drives the port's main paths:
   a 900x600 image, then 60 frames drawing it on a fullscreen quad; the
   presented frame must be the splatted image): K10, K6. Its last frame goes
   to ``chiprun_out/compute_drawing/``. K10 is also checked on 65,536
-  particles at 1920x1080;
+  particles at 1920x1080 (with off-image boxes, and the sample's draw at
+  that size), with its device ms under ``torch.profiler`` beside the
+  device ms of one empty kernel (the launch floor);
 * SH colours from a PLY: a 1M-splat degree-3 cloud written by ``save_ply``
   and read back by ``load_ply`` (the file is deleted afterwards), then the
   frames of ``python -m ray_eater_tpu_torch.gs_viewer`` at its defaults
   (1920x1080, LOD with temporal budgets, colours evaluated at the eye),
   gated like the fog flythrough: K1, K2.
 
-Launch counts are zeroed just before each main path and read just after
-it; the ``launches`` of the kernels record are their sum over the paths.
+* the animation phase: ``render_animation(keep="all")`` over 60 frames,
+  replayed as a captured CUDA graph, against the eager loop over the same
+  frame step on the card (``render_animation_eager``), u8 for u8, for fog,
+  inria, SH (gs_viewer), basic_planes, multipass (through its
+  ``RenderGraph``), grid10k and compute_drawing at their full sizes; the
+  final LOD budget (the carry) of fog and SH equal too; ms/frame of
+  replay and of the eager loop, and the capture's seconds;
+* the Swapchain phase: ``basic_planes --host-loop`` presents all 60
+  frames through the ring in FIFO order.
+
+The entry points (basic_planes, multipass, compute_drawing) run their
+default device loop, ``render_animation``: two eager warm-up steps, then
+their frames replay a captured CUDA graph. A wrapper's launch counter
+advances where the wrapper launches its kernel (the eager frames and
+warm-up steps), and ``render_animation`` adds the launches of one
+captured step for every replayed frame; the capture itself launches
+nothing and counts nothing. Launch counts are zeroed just before each
+main path and read just after it; the ``launches`` of the kernels record
+are their sum over the paths. The launches of one replayed frame are
+logged with each path, and a device-loop path must count exactly its
+warm-up steps and replayed frames.
 Any failed check exits nonzero. The last lines are a ``{"kernels": [...]}``
 record and ``{"ok": true, "device": {...}}``. Without a CUDA device it
 exits 2 and prints no result.
@@ -126,6 +147,7 @@ SH_PLY_TOL = 1e-5
 
 # raster and sampling (K6-K9)
 RASTER_FRAMES = 60
+BUSY_FRAMES = 10         # replayed frames traced for the device-busy share
 RASTER_OUT = "chiprun_out/raster"
 # K6/K7 vs plain: winner ids equal, λ0/λ1/depth where they agree, and K9:
 # the same float32 operations in the same order (--fmad=false)
@@ -434,6 +456,11 @@ class BenchFrames:
         return self.gs.initial_lod_budget(
             W, H, self.knobs["tile_w"], self.knobs["max_splats_per_tile"],
             self.cloud.means.device)
+
+    def step(self, t, budget):
+        """The animation's frame step: (image, the next budget)."""
+        img, st = self.frame(t, budget)
+        return img, self.next_budget(st, budget)
 
     def next_budget(self, st, budget):
         if not self.temporal:
@@ -945,10 +972,14 @@ def raster_paths(torch, cuda, dev):
     r = basic_planes.run(a)
     torch.cuda.synchronize()
     paths["basic_planes"] = dict(cuda.launches)
-    log(f"basic_planes {a.width}x{a.height}: {RASTER_FRAMES} frames, "
-        f"{r['ms_per_frame']:.3f} ms/frame (CUDA events); launches "
-        f"{paths['basic_planes']}; PNG {r['png']}")
-    require(bool(torch.isfinite(r["fb"].color).all()), "basic_planes frame")
+    log(f"basic_planes {a.width}x{a.height} [{r['path']}]: {RASTER_FRAMES} "
+        f"frames, {r['ms_per_frame']:.3f} ms/frame (CUDA events), "
+        f"{r['host_ms_per_frame']:.3f} (host clock), capture "
+        f"{r['capture_s']:.3f} s; launches {paths['basic_planes']}, a "
+        f"replayed frame {r['launches_per_frame']}; PNG {r['png']}")
+    require(r["last"].shape == (a.height, a.width, 4)
+            and r["last"].any(), "basic_planes frame")
+    require_replayed("basic_planes", paths["basic_planes"], r)
 
     cuda.reset_launches()
     a = multipass.parse_args(
@@ -956,10 +987,17 @@ def raster_paths(torch, cuda, dev):
     r = multipass.run(a)
     torch.cuda.synchronize()
     paths["multipass"] = dict(cuda.launches)
-    log(f"multipass {a.width}x{a.height} ({r['triangles']} tris x 2 passes): "
-        f"{RASTER_FRAMES} frames, {r['ms_per_frame']:.3f} ms/frame (CUDA "
-        f"events); launches {paths['multipass']}; PNG {r['png']}")
-    require(bool(torch.isfinite(r["fb"].color).all()), "multipass frame")
+    log(f"multipass {a.width}x{a.height} ({r['triangles']} tris x 2 passes, "
+        f"graph {' -> '.join(r['passes'])}) [{r['path']}]: {RASTER_FRAMES} "
+        f"frames, {r['ms_per_frame']:.3f} ms/frame (CUDA events), "
+        f"{r['host_ms_per_frame']:.3f} (host clock), capture "
+        f"{r['capture_s']:.3f} s; launches {paths['multipass']}, a replayed "
+        f"frame {r['launches_per_frame']}; PNG {r['png']}")
+    require(r["last"].shape == (a.height, a.width, 4)
+            and r["last"].any(), "multipass frame")
+    require(r["passes"] == ["setup", "depth_prepass", "lit"],
+            f"multipass schedule {r['passes']}")
+    require_replayed("multipass", paths["multipass"], r)
 
     sc = rs.scene("grid10k", dev)
     m, (pipe, res), w, h = sc.mesh, sc.passes[0], sc.width, sc.height
@@ -972,15 +1010,17 @@ def raster_paths(torch, cuda, dev):
         return fb
 
     cuda.reset_launches()
-    ms, fb, host_ms = rs.frame_loop(frame, RASTER_FRAMES, dev)
+    r = rs.host_loop(frame, RASTER_FRAMES, dev, w, h, present=False)
     torch.cuda.synchronize()
+    ms, fb, host_ms = r["ms_per_frame"], r["frame"], r["host_ms_per_frame"]
     paths["grid10k"] = dict(cuda.launches)
     per = {k: v / (RASTER_FRAMES + 1) for k, v in paths["grid10k"].items()
            if v}
     save_png(f"{RASTER_OUT}/grid10k_frame_last.png",
              to_srgb_u8(fb.color[:h, :w]))
     log(f"grid10k {w}x{h} ({m.num_triangles} triangles, mip + 4x aniso): "
-        f"{RASTER_FRAMES} frames, {ms:.3f} ms/frame (CUDA events), "
+        f"{RASTER_FRAMES} eager frames [{r['path']}, presenting the "
+        f"last], {ms:.3f} ms/frame (CUDA events), "
         f"{host_ms:.3f} ms/frame (host clock); launches "
         f"{paths['grid10k']} ({per} a frame); PNG "
         f"{RASTER_OUT}/grid10k_frame_last.png")
@@ -1052,13 +1092,40 @@ def check_k10(torch, splat, pos, h: int, w: int, r: int, label: str,
                                                              r), reps)
     log(f"K10 [{label}] library yardstick (index_put_ + max_pool2d, two "
         f"calls) {rec['library_ms']:.4f} ms")
+    from ray_eater_tpu_torch.time_composite import device_ms
+    from ray_eater_tpu_torch.time_splat import floor_ms, splat_kernel
+    kern, other, _ = device_ms(torch, splat._splat_k10, (pos, h, w, r),
+                               splat_kernel)
+    rec["device_ms"], rec["floor_ms"] = kern, floor_ms(torch, splat)
+    log(f"K10 [{label}] device ms under torch.profiler: splat kernel "
+        f"{kern:.5f}, all device work of the call {kern + other:.5f}; one "
+        f"empty kernel (the launch floor) {rec['floor_ms']:.5f}; bound "
+        f"{rec['bound_ms']:.5f} ms")
+    require(other == 0.0, f"K10 [{label}] made device work besides its "
+            f"kernel ({other:.5f} ms)")
     return rec
+
+
+def require_replayed(name, launches, r):
+    """A device-loop entry point's ``launches`` (zeroed just before its
+    run) hold, for each kernel of its frame step, the two eager warm-up
+    steps, the one-frame capture call and the ``RASTER_FRAMES`` timed
+    replays: ``WARMUP_STEPS + 1 + RASTER_FRAMES`` times a replayed
+    frame's launches."""
+    from ray_eater_tpu_torch.core.animation import WARMUP_STEPS
+    steps = WARMUP_STEPS + 1 + RASTER_FRAMES
+    want = {k: steps * v for k, v in r["launches_per_frame"].items() if v}
+    got = {k: launches[k] for k in want}
+    require(r["path"].startswith("device-loop") and want and got == want,
+            f"{name} [{r['path']}]: launches {got}, expected {want} "
+            f"({steps} frame steps)")
 
 
 def compute_drawing_path(torch, cuda):
     """The compute_drawing main path: the entry point's run() (900x600,
-    1024 particles, 60 frames) with its launches counted from zero; the
-    presented frame must be the splatted image."""
+    1024 particles, 60 frames of its device loop) with its launches counted
+    from zero; the presented frame must be the splatted image, K10 must
+    launch once and K6 once in every frame step."""
     from ray_eater_tpu_torch import compute_drawing as cd
     from ray_eater_tpu_torch.core.swapchain import encode_present
     args = cd.parse_args(["--frames", str(RASTER_FRAMES), "--out",
@@ -1076,13 +1143,176 @@ def compute_drawing_path(torch, cuda):
         f"{r['host_ms_per_frame']:.3f} ms/frame (host clock); launches "
         f"{launches}; presented pixels differing from the splatted image: "
         f"{differ}; PNG {r['png']}")
-    require(launches["k10_splat"] >= 1, "K10 was not launched by "
-            "compute_drawing")
-    require(launches["k6_raster"] >= RASTER_FRAMES,
-            f"K6 launched {launches['k6_raster']} times by compute_drawing")
+    log(f"compute_drawing path: {r['path']}, capture {r['capture_s']:.3f} "
+        f"s, launches a replayed frame {r['launches_per_frame']}")
+    require(launches["k10_splat"] == 1, "K10 launched "
+            f"{launches['k10_splat']} times by compute_drawing")
+    require(r["launches_per_frame"]["k6_raster"] >= 1,
+            f"K6 not in compute_drawing's captured frame: "
+            f"{r['launches_per_frame']}")
+    require_replayed("compute_drawing", launches, r)
     require(differ == 0, f"compute_drawing: {differ} presented pixels differ "
             "from the splatted image")
     return launches
+
+
+# ---- the animation phase: render_animation replay vs the eager loop --------
+
+def animation_phase(torch, cuda, scene: str, frame_fn, carry=None,
+                    srgb: bool = True, finite=None, dev="cuda"):
+    """``render_animation(keep="all")`` over ``FRAMES`` frames of
+    ``frame_fn`` (a CUDA graph's replay) against the eager loop over the
+    same step on the card (``render_animation_eager``): the u8 frames must
+    be equal, and the final carry too. ``finite(out)`` of an eager frame
+    returns a device bool that the frame is finite. The first
+    render_animation call captures the step; a second, timed one replays
+    the cached graph; both are held to the eager frames. Returns the
+    record (ms/frame of each, capture seconds, launches)."""
+    from ray_eater_tpu_torch.core import animation
+    ok = torch.ones((), dtype=torch.bool, device=dev)
+
+    def checked(*a):
+        nonlocal ok
+        out = frame_fn(*a)
+        if finite is not None:
+            ok = ok & finite(out[0] if carry is not None else out)
+        return out
+
+    cuda.reset_launches()
+    kw = dict(srgb=srgb, keep="all", carry=carry, device=dev)
+
+    def timed(fn, info):
+        torch.cuda.synchronize()
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        e0.record()
+        out = fn(FRAMES, info=info, **kw)
+        e1.record()
+        e1.synchronize()
+        return (out, e0.elapsed_time(e1) / FRAMES,
+                (time.perf_counter() - t0) * 1e3 / FRAMES)
+
+    eager_info, first, second = {}, {}, {}
+    want, eager_ms, eager_host = timed(
+        lambda n, **k: animation.render_animation_eager(checked, n, **k),
+        eager_info)
+    eager_launches = dict(cuda.launches)
+    got1, _, first_host = timed(
+        lambda n, **k: animation.render_animation(frame_fn, n, **k), first)
+    got2, replay_ms, replay_host = timed(
+        lambda n, **k: animation.render_animation(frame_fn, n, **k), second)
+    torch.cuda.synchronize()
+    launches = dict(cuda.launches)
+    # the eager loop, the warm-up steps and both calls' replayed frames
+    lpf = first["launches_per_frame"]
+    steps = FRAMES + animation.WARMUP_STEPS + 2 * FRAMES
+    counts_match = launches == {k: steps * v for k, v in lpf.items()}
+    busy_ms = replay_busy_ms(torch, animation, frame_fn, kw)
+    animation.release(frame_fn)
+    differ = [int((g != want).any(-1).sum()) for g in (got1, got2)]
+    carry_equal = None
+    if carry is not None:
+        carry_equal = all(bool(torch.equal(x, y)) for x, y in (
+            (first["carry"], eager_info["carry"]),
+            (second["carry"], eager_info["carry"])))
+    rec = dict(scene=scene, frames=FRAMES, replay_ms=replay_ms,
+               replay_host_ms=replay_host, eager_ms=eager_ms,
+               eager_host_ms=eager_host, capture_s=first["capture_s"],
+               first_call_host_ms=first_host,
+               launches_per_frame=first["launches_per_frame"],
+               replay_busy_ms=busy_ms,
+               eager_launches=eager_launches, launches=launches,
+               differing_pixels=differ, carry_equal=carry_equal,
+               shape=tuple(want.shape))
+    log(f"animation [{scene}]: {FRAMES} frames {tuple(want.shape)} u8, "
+        f"replay {replay_ms:.3f} ms/frame (CUDA events; host clock "
+        f"{replay_host:.3f}), eager loop {eager_ms:.3f} ms/frame (host "
+        f"clock {eager_host:.3f}); device busy a replayed frame "
+        f"{busy_ms if busy_ms is None else f'{busy_ms:.3f}'} ms "
+        f"(torch.profiler); capture {first['capture_s']:.3f} s "
+        f"(first call, warm-up + capture + replay: {first_host:.3f} ms a "
+        f"frame); pixels differing from the eager frames (capture call, "
+        f"replay call) {differ}; final carry equal {carry_equal}; launches "
+        f"a replayed frame {lpf}; counts: eager loop {eager_launches}, "
+        f"eager loop + {animation.WARMUP_STEPS} warm-up steps + "
+        f"{2 * FRAMES} replayed frames {launches} ({steps} frame steps "
+        f"times a frame's: {counts_match})")
+    require(second["path"] == "graph" and not second["captured"],
+            f"animation [{scene}]: the second call did not replay the "
+            f"cached graph ({second})")
+    require(differ == [0, 0], f"animation [{scene}]: replayed frames differ "
+            f"from the eager loop's in {differ} pixels")
+    require(carry_equal in (None, True),
+            f"animation [{scene}]: final carry differs from the eager loop's")
+    require(bool(ok), f"animation [{scene}]: non-finite eager frame")
+    require(sum(lpf.values()) > 0,
+            f"animation [{scene}]: no port kernel in the captured frame")
+    require(counts_match, f"animation [{scene}]: launches {launches} are "
+            f"not {steps} frame steps of {lpf}")
+    del want, got1, got2
+    torch.cuda.empty_cache()
+    return rec
+
+
+def replay_busy_ms(torch, animation, frame_fn, kw):
+    """Device ms a replayed frame: the summed self device time of every
+    kernel, copy and fill that ``torch.profiler`` records over
+    ``BUSY_FRAMES`` replayed frames (the cached graph), a frame's share;
+    None when the trace holds no device work (CUPTI saw no graph nodes)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        animation.render_animation(frame_fn, BUSY_FRAMES, **kw)
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA)
+    return us / 1e3 / BUSY_FRAMES if us > 0 else None
+
+
+def fb_finite(torch):
+    return lambda fb: torch.isfinite(fb.color).all()
+
+
+def img_finite(torch):
+    return lambda img: torch.isfinite(img).all()
+
+
+def swapchain_phase(torch, cuda):
+    """``basic_planes --host-loop``: every one of ``FRAMES`` eager frames
+    presented through the Swapchain ring arrives, in FIFO order: presented
+    frame i is nearest (mean abs difference) to frame i of the eager
+    animation of the same scene."""
+    from ray_eater_tpu_torch import basic_planes
+    from ray_eater_tpu_torch import raster_scenes as rs
+    from ray_eater_tpu_torch.core import animation
+    eager_frames = animation.render_animation_eager(
+        rs.scene("basic_planes", "cuda").frame, FRAMES, device="cuda")
+    got = []
+    a = basic_planes.parse_args(["--frames", str(FRAMES), "--host-loop",
+                                 "--out", f"{RASTER_OUT}/basic_planes_host"])
+    cuda.reset_launches()
+    r = basic_planes.run(a, on_image=got.append)
+    launches = dict(cuda.launches)
+    want = eager_frames.to(torch.int16)
+    nearest, equal = [], 0
+    for i, img in enumerate(got):
+        d = (want - torch.from_numpy(img).to(want.device, torch.int16)
+             ).abs().flatten(1).float().mean(1)
+        nearest.append(int(d.argmin()))
+        equal += int(d[i] == 0) if i < len(want) else 0
+    log(f"swapchain [basic_planes --host-loop]: {r['presented']} of "
+        f"{FRAMES} frames presented, {r['ms_per_frame']:.3f} ms/frame (CUDA "
+        f"events), {r['host_ms_per_frame']:.3f} (host clock); FIFO order "
+        f"{nearest == list(range(FRAMES))}; equal to the animation's frame "
+        f"{equal} of {len(got)}; launches {launches}")
+    require(r["path"] == "host-loop" and r["presented"] == FRAMES
+            and len(got) == FRAMES, f"swapchain: {len(got)} frames presented")
+    require(nearest == list(range(FRAMES)),
+            f"swapchain: frames out of FIFO order: {nearest}")
+    require(launches["k6_raster"] == FRAMES + 1,
+            f"swapchain: K6 launched {launches['k6_raster']} times")
+    return r
 
 
 def check_drawing_small(torch, devs=("cuda", "cpu")):
@@ -1134,7 +1364,8 @@ def sh_path(torch, gs, cuda, dev):
     """The SH main path: gs_viewer's 1M-splat synthetic cloud with 15 SH
     bands (degree 3) written by save_ply and read back by load_ply, then
     gs_viewer's frames at its defaults (LOD with temporal budgets, SH
-    colours at the eye) through main_path. Returns the launch counts."""
+    colours at the eye) through main_path, then its animation phase.
+    Returns the launch counts and the animation record."""
     import os
     from ray_eater_tpu_torch import gs_viewer
     from ray_eater_tpu_torch.models.gaussians import (eval_sh_colors,
@@ -1189,7 +1420,10 @@ def sh_path(torch, gs, cuda, dev):
     launches = main_path(torch, cuda, "sh", v)
     for key, name in (("k1_project", "K1"), ("k2_composite", "K2")):
         require(launches[key] > 0, f"{name} was not launched on the SH path")
-    return launches
+    anim = animation_phase(torch, cuda, "SH (gs_viewer)", v.step,
+                           carry=v.initial_budget(),
+                           finite=img_finite(torch))
+    return launches, anim
 
 
 def run() -> int:
@@ -1251,8 +1485,12 @@ def run() -> int:
                                           device=d),
                 flythrough_camera, kw_meas, kw_exact)
 
-    fog_launches = main_path(torch, cuda, "fog", BenchFrames(
-        gs, cloud, knobs, kw_meas, kw_exact, flythrough_camera))
+    fog = BenchFrames(gs, cloud, knobs, kw_meas, kw_exact, flythrough_camera)
+    fog_launches = main_path(torch, cuda, "fog", fog)
+    anims = [animation_phase(torch, cuda, "fog", fog.step,
+                             carry=fog.initial_budget(),
+                             finite=img_finite(torch))]
+    del fog
     for key, name in (("k1_project", "K1"), ("k2_composite", "K2")):
         require(fog_launches[key] > 0, f"{name} was not launched on the fog "
                 "main path")
@@ -1293,8 +1531,13 @@ def run() -> int:
                 render_kwargs(resolve_knobs("inria", SMALL["n"], env={}),
                               exact=True, interpret=False))
 
-    inria_launches = main_path(torch, cuda, "inria", BenchFrames(
-        gs, cloud, knobs, kw_meas, kw_exact, flythrough_camera))
+    inria = BenchFrames(gs, cloud, knobs, kw_meas, kw_exact,
+                        flythrough_camera)
+    inria_launches = main_path(torch, cuda, "inria", inria)
+    anims.append(animation_phase(torch, cuda, "inria",
+                                 lambda t: inria.frame(t, None)[0],
+                                 finite=img_finite(torch)))
+    del inria
     for key, name in (("k1_project", "K1"), ("k2_composite", "K2"),
                       ("k3_composite_tail", "K3")):
         require(inria_launches[key] > 0, f"{name} was not launched on the "
@@ -1354,6 +1597,19 @@ def run() -> int:
     check_raster_small(torch, rs)
     raster_launches = raster_paths(torch, cuda, dev)
     torch.cuda.empty_cache()
+    from ray_eater_tpu_torch import multipass
+    anims.append(animation_phase(torch, cuda, "basic_planes",
+                                 rs.scene("basic_planes", dev).frame,
+                                 finite=fb_finite(torch)))
+    frame = multipass.frame_graph(rs.scene("multipass", dev))
+    anims.append(animation_phase(torch, cuda, "multipass (RenderGraph)",
+                                 lambda t: frame(t=t)["fb"],
+                                 finite=fb_finite(torch)))
+    anims.append(animation_phase(torch, cuda, "grid10k",
+                                 rs.scene("grid10k", dev).frame,
+                                 finite=fb_finite(torch)))
+    swapchain_phase(torch, cuda)
+    torch.cuda.empty_cache()
 
     # ---- particle splat: K10 on the sample's pass and a wide check;
     # compute_drawing ----------------------------------------------------
@@ -1372,14 +1628,37 @@ def run() -> int:
     log(f"K10 wide check: {wide['ms']:.4f} ms, plain {wide['plain_ms']:.4f} "
         f"ms, bound {wide['bound_ms']:.4f} ms, library "
         f"{wide['library_ms']:.4f} ms")
+    pos = torch.from_numpy(cd.particle_positions(0, wd["w"], wd["h"],
+                                                 wd["n"])).to(dev)
+    hd = check_k10(torch, splat, pos, wd["h"], wd["w"], cd.PIXELS_RAD,
+                   f"sample's draw, {wd['n']} @ {wd['w']}x{wd['h']}",
+                   reps=20)
+    log(f"K10 at {wd['n']} particles, {wd['w']}x{wd['h']} (RandomState(0)): "
+        f"{hd['ms']:.4f} ms (events), device {hd['device_ms']:.5f} ms, "
+        f"launch floor {hd['floor_ms']:.5f} ms, bound {hd['bound_ms']:.5f} "
+        f"ms, library {hd['library_ms']:.4f} ms")
     check_drawing_small(torch)
     drawing_launches = compute_drawing_path(torch, cuda)
+    anims.append(animation_phase(torch, cuda, "compute_drawing",
+                                 cd.setup(dev).frame, srgb=False,
+                                 finite=fb_finite(torch)))
     torch.cuda.empty_cache()
 
     # ---- SH colours from a PLY through gs_viewer: K1, K2 ------------------
     check_sh_small(torch)
-    sh_launches = sh_path(torch, gs, cuda, dev)
+    sh_launches, anim = sh_path(torch, gs, cuda, dev)
+    anims.append(anim)
     torch.cuda.empty_cache()
+    log("animation phase, ms/frame (replay by CUDA events; eager loop by "
+        "CUDA events), capture s: " + "; ".join(
+            f"{a['scene']} {a['replay_ms']:.3f} / {a['eager_ms']:.3f}, "
+            f"{a['capture_s']:.3f}" for a in anims))
+    print(json.dumps({"animation": [
+        {k: a[k] for k in ("scene", "frames", "replay_ms", "replay_host_ms",
+                           "replay_busy_ms", "eager_ms", "eager_host_ms",
+                           "capture_s",
+                           "launches_per_frame", "differing_pixels",
+                           "carry_equal")} for a in anims]}))
 
     paths = (fog_launches, inria_launches, train_launches, adc_launches,
              *raster_launches.values(), drawing_launches, sh_launches)

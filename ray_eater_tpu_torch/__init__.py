@@ -7,9 +7,12 @@ single-device training path (``ops.gs.render_gaussians_diff``,
 ``models.gs_densify``, the ``gs_trainer`` entry point) and its triangle
 raster and texture sampling path (``ops.raster.render_mesh``,
 ``ops.sampling``, the ``basic_planes`` and ``multipass`` entry points),
-its particle splat (``ops.splat``, the ``compute_drawing`` entry point)
-and its view-dependent SH colours and PLY interchange
-(``models.gaussians``, the ``gs_viewer`` entry point) with plain PyTorch
+its particle splat (``ops.splat``, the ``compute_drawing`` entry point),
+its view-dependent SH colours and PLY interchange (``models.gaussians``,
+the ``gs_viewer`` entry point) and its host runtime (``core.animation``:
+``render_animation`` as the replay of a captured CUDA graph;
+``core.swapchain.Swapchain``, ``core.context.Context``,
+``graph.render_graph``, ``utils``, ``io.obj``) with plain PyTorch
 for the tensor glue and ten kernels written by hand in CUDA C++
 (``csrc/``): K1, the EWA projection; K2, the tile composite; K3, the
 composite of the decimated tail; K4, K2 plus the entry-T checkpoints that

@@ -4,12 +4,16 @@ Two textured quads (8 vertices, 12 indices) with per-vertex colours and
 uv, depth-tested, the model spinning about Y at 45 degrees a second, the
 camera at (2, 2, 2) looking at the origin (basic_planes.zig:245-350;
 ``samples/basic_planes.py``), textured with the samples' procedural
-checkerboard (``raster_scenes.scene("basic_planes")``). A host loop renders
-``--frames`` frames at t = i/60, timed by CUDA events, and writes the last
-one to ``OUT/frame_last.png``.
+checkerboard (``raster_scenes.scene("basic_planes")``). By default the
+``--frames`` frames at t = i/60 run as one animation through
+``render_animation`` (on a CUDA device: one captured frame step, replayed
+a frame at a time); ``--host-loop`` renders each frame eagerly and
+presents it through the ``Swapchain`` ring (``--no-present``: only the
+last). The last frame goes to ``OUT/frame_last.png``.
 
     python -m ray_eater_tpu_torch.basic_planes [--frames 60]
-        [--width 900 --height 600] [--out DIR] [--device cuda|cpu]
+        [--width 900 --height 600] [--host-loop [--no-present]]
+        [--out DIR] [--device cuda|cpu]
 """
 
 from __future__ import annotations
@@ -19,8 +23,8 @@ import os
 import sys
 import tempfile
 
-from .io.image import save_png, to_srgb_u8
-from .raster_scenes import EXTENTS, frame_loop, scene
+from .io.image import save_png
+from .raster_scenes import EXTENTS, device_loop, host_loop, scene
 
 
 def parse_args(argv=None):
@@ -29,30 +33,44 @@ def parse_args(argv=None):
     ap.add_argument("--frames", type=int, default=60)
     ap.add_argument("--width", type=int, default=w)
     ap.add_argument("--height", type=int, default=h)
+    ap.add_argument("--host-loop", action="store_true",
+                    help="render each frame eagerly and present it through "
+                         "the swapchain ring instead of the device loop")
+    ap.add_argument("--no-present", action="store_true",
+                    help="with --host-loop: present only the last frame")
     ap.add_argument("--out", default=os.path.join(tempfile.gettempdir(),
                                                   "rayeater_basic_planes"))
     ap.add_argument("--device", default="cuda")
     return ap.parse_args(argv)
 
 
-def run(args) -> dict:
-    """Render the animation; returns {"ms_per_frame", "frames", "fb" (the
-    last framebuffer), "png"}."""
+def run(args, on_image=None) -> dict:
+    """Render the animation by the path the arguments select; returns
+    :func:`raster_scenes.device_loop`'s or :func:`raster_scenes.host_loop`'s
+    record (``path`` names it; ``on_image`` gets each frame the host loop
+    presents) with "frames" (the count), "last" (the last u8 frame, a
+    numpy array) and "png"."""
     sc = scene("basic_planes", args.device, args.width, args.height)
-    ms, fb, _ = frame_loop(sc.frame, args.frames, args.device)
+    if args.host_loop:
+        r = host_loop(sc.frame, args.frames, args.device, sc.width,
+                      sc.height, present=not args.no_present,
+                      on_image=on_image)
+    else:
+        r = device_loop(sc.frame, args.frames, args.device)
+        r["last"] = r.pop("frames")[-1].cpu().numpy()
     os.makedirs(args.out, exist_ok=True)
-    png = os.path.join(args.out, "frame_last.png")
-    if fb is not None:
-        save_png(png, to_srgb_u8(fb.color[:sc.height, :sc.width]))
-    return {"ms_per_frame": ms, "frames": args.frames, "fb": fb, "png": png}
+    r["png"] = os.path.join(args.out, "frame_last.png")
+    save_png(r["png"], r["last"])
+    r["frames"] = args.frames
+    return r
 
 
 def main(argv=None) -> int:
     args = parse_args(argv)
     r = run(args)
-    print(f"basic_planes: {r['frames']} frames {args.width}x{args.height} "
-          f"at {r['ms_per_frame']:.3f} ms/frame on {args.device} "
-          f"(saved {r['png']})")
+    print(f"basic_planes[{r['path']}]: {r['frames']} frames {args.width}x"
+          f"{args.height} at {r['ms_per_frame']:.3f} ms/frame on "
+          f"{args.device} (saved {r['png']})")
     return 0
 
 

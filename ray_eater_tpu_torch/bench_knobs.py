@@ -17,6 +17,7 @@ import torch
 from . import rmath
 from .models.gaussians import inria_cloud, random_cloud
 from .ops import gs
+from .utils import on_device
 
 #: knobs that exist only on the measured (LOD) config: the PSNR gate's exact
 #: reference differs from the measured config in exactly these keys
@@ -156,11 +157,9 @@ def flythrough_camera(t, W: int, H: int, device="cuda"):
     radius 2.5 at height 0.8 around the origin, 30°/s, 60° vertical FOV.
     Returns (view, proj) (4, 4) f32 on ``device``."""
     t = (t.to(torch.float32) if isinstance(t, torch.Tensor)
-         else torch.tensor(t, dtype=torch.float32, device=device))
+         else on_device(t, device))
     ang = rmath.radians(30.0, device=t.device) * t
-    eye = torch.stack([2.5 * torch.cos(ang),
-                       torch.tensor(0.8, dtype=torch.float32,
-                                    device=t.device),
+    eye = torch.stack([2.5 * torch.cos(ang), on_device(0.8, t.device),
                        2.5 * torch.sin(ang)])
     view = rmath.look_at_zforward(eye, rmath.vec(0.0, 0.0, 0.0,
                                                  device=t.device))

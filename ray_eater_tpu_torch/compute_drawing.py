@@ -5,13 +5,16 @@ A compute pass splats 1024 yellow 40 px squares, at positions drawn from
 once at start-up (kernel K10; main.zig:306-319,
 ``samples/compute_drawing.py``). Every frame then samples that image onto
 a fullscreen quad (render_quad.zig:116-127) through ``render_mesh``
-(kernel K6) with a clamp-to-edge linear sampler. A host loop renders
-``--frames`` frames at t = i/60, timed by CUDA events, and writes the last
-one, encoded without sRGB as the sample presents it, to
-``OUT/frame_last.png``.
+(kernel K6) with a clamp-to-edge linear sampler. By default the
+``--frames`` frames at t = i/60 run as one animation through
+``render_animation`` keeping the last frame (on a CUDA device: one
+captured frame step, replayed a frame at a time); ``--host-loop`` renders
+each frame eagerly and presents it through the ``Swapchain`` ring. Frames
+are encoded without sRGB, as the sample presents them; the last one goes
+to ``OUT/frame_last.png``.
 
     python -m ray_eater_tpu_torch.compute_drawing [--frames 60] [--out DIR]
-        [--seed 0] [--device cuda|cpu]
+        [--seed 0] [--host-loop] [--device cuda|cpu]
 """
 
 from __future__ import annotations
@@ -29,12 +32,11 @@ from .core import shaders
 from .core.pipeline import ComputePipeline, GraphicsPipeline, RasterState
 from .core.resources import (AddressMode, Framebuffer, Sampler, Texture,
                              create_framebuffer)
-from .core.swapchain import encode_present
 from .io.image import save_png
 from .models.mesh import Mesh, fullscreen_quad
 from .ops.raster import render_mesh
 from .ops.splat import splat_particles
-from .raster_scenes import frame_loop
+from .raster_scenes import device_loop, host_loop
 
 WIDTH, HEIGHT = 900, 600
 PARTICLE_COUNT = 1024           # main.zig:82
@@ -106,33 +108,40 @@ def parse_args(argv=None):
     ap.add_argument("--out", default=os.path.join(tempfile.gettempdir(),
                                                   "rayeater_compute_drawing"))
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--host-loop", action="store_true",
+                    help="render each frame eagerly and present it through "
+                         "the swapchain ring instead of the device loop")
     ap.add_argument("--device", default="cuda")
     return ap.parse_args(argv)
 
 
 def run(args) -> dict:
-    """The compute pass, then the timed frames. Returns {"ms_per_frame"
-    (CUDA events on a CUDA device), "host_ms_per_frame", "frames",
-    "drawing", "fb" (the last framebuffer), "u8" (its presented frame,
-    a uint8 tensor), "png"}."""
+    """The compute pass, then the frames by the path the arguments select.
+    Returns :func:`raster_scenes.device_loop`'s or
+    :func:`raster_scenes.host_loop`'s record (``path`` names it) with
+    "frames" (the count), "drawing", "u8" (the last presented frame, a
+    uint8 tensor) and "png"."""
     d = setup(args.device, args.seed)
-    ms, fb, host_ms = frame_loop(d.frame, args.frames, args.device)
+    if args.host_loop:
+        r = host_loop(d.frame, args.frames, args.device, WIDTH, HEIGHT,
+                      srgb=False)
+        r["u8"] = torch.from_numpy(r.pop("last"))
+    else:
+        r = device_loop(d.frame, args.frames, args.device, srgb=False,
+                        keep="last")
+        r["u8"] = r.pop("frames")
     os.makedirs(args.out, exist_ok=True)
-    png = os.path.join(args.out, "frame_last.png")
-    u8 = None
-    if fb is not None:
-        u8 = encode_present(fb.color, WIDTH, HEIGHT, srgb=False)
-        save_png(png, u8.cpu().numpy())
-    return {"ms_per_frame": ms, "host_ms_per_frame": host_ms,
-            "frames": args.frames, "drawing": d, "fb": fb, "u8": u8,
-            "png": png}
+    r["png"] = os.path.join(args.out, "frame_last.png")
+    save_png(r["png"], r["u8"].cpu().numpy())
+    r.update(frames=args.frames, drawing=d)
+    return r
 
 
 def main(argv=None) -> int:
     args = parse_args(argv)
     r = run(args)
-    print(f"compute_drawing: {r['frames']} frames {WIDTH}x{HEIGHT} at "
-          f"{r['ms_per_frame']:.3f} ms/frame on {args.device} "
+    print(f"compute_drawing[{r['path']}]: {r['frames']} frames {WIDTH}x"
+          f"{HEIGHT} at {r['ms_per_frame']:.3f} ms/frame on {args.device} "
           f"(saved {r['png']})")
     return 0
 

@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from ..io.image import linear_to_srgb, srgb_to_linear
+from ..utils import on_device
 from ..utils import pad_to as _pad
 
 
@@ -52,8 +53,7 @@ def create_framebuffer(width: int, height: int,
     """Allocate and clear a framebuffer (the reference clears to black and
     depth 1.0 at vkCmdBeginRenderPass, renderpass.zig:128-132)."""
     wp, hp = _pad(width, lane_align), _pad(height, row_align)
-    color = torch.tensor(clear_color, dtype=torch.float32,
-                         device=device).expand(hp, wp, 4).contiguous()
+    color = on_device(clear_color, device).expand(hp, wp, 4).contiguous()
     depth = torch.full((hp, wp), clear_depth, dtype=torch.float32,
                        device=device)
     return Framebuffer(color=color, depth=depth, width=width, height=height)
@@ -62,9 +62,8 @@ def create_framebuffer(width: int, height: int,
 def clear(fb: Framebuffer, clear_color=(0.0, 0.0, 0.0, 1.0),
           clear_depth: float = 1.0) -> Framebuffer:
     """A cleared framebuffer of the same size (renderpass.zig:126-141)."""
-    color = torch.tensor(clear_color, dtype=torch.float32,
-                         device=fb.color.device).expand(
-                             fb.color.shape).contiguous()
+    color = on_device(clear_color, fb.color.device).expand(
+        fb.color.shape).contiguous()
     return Framebuffer(color=color,
                        depth=torch.full_like(fb.depth, clear_depth),
                        width=fb.width, height=fb.height)

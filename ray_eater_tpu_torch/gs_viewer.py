@@ -5,14 +5,18 @@ evaluated at the eye every frame) or a synthetic N-splat cloud
 (:func:`synthetic_cloud`) along the orbit camera of ``samples/gs_viewer.py``: radius 2.5, height
 0.8, 30 degrees a second, 60 degree vertical field of view. Frames render
 in LOD mode with temporal per-tile budgets (``--max-per-tile`` pairs a
-tile on average, 0 = exact). A host loop renders one warm-up frame and
-``--frames`` frames at t = i/60 (t = 0 with ``--static-camera``), timed by
-CUDA events, and writes the last one to ``OUT/frame_last.png``.
+tile on average, 0 = exact). By default the ``--frames`` frames at
+t = i/60 (t = 0 with ``--static-camera``) run as one animation through
+``render_animation``, the (ntiles, 2) budget carried from frame to frame
+(on a CUDA device: one captured frame step, replayed a frame at a time);
+``--host-loop`` renders one warm-up frame and then each frame eagerly and
+presents it through the ``Swapchain`` ring. The last frame goes to
+``OUT/frame_last.png``.
 
     python -m ray_eater_tpu_torch.gs_viewer [--ply FILE | --splats N]
         [--frames 30] [--width 1920 --height 1080] [--max-per-tile 192]
         [--tile-w 32] [--cap-factor 4] [--big-splat-cap 0]
-        [--static-camera] [--out DIR] [--device cuda|cpu]
+        [--static-camera] [--host-loop] [--out DIR] [--device cuda|cpu]
 """
 
 from __future__ import annotations
@@ -27,10 +31,11 @@ import numpy as np
 import torch
 
 from . import rmath
-from .io.image import save_png, to_srgb_u8
+from .io.image import save_png
 from .models.gaussians import GaussianCloud, load_ply, random_cloud
 from .ops import gs
-from .raster_scenes import frame_loop
+from .raster_scenes import device_loop, host_loop
+from .utils import on_device
 
 _F32 = torch.float32
 
@@ -40,10 +45,10 @@ def orbit_at(azimuth, height: float, radius: float, fov_deg: float = 60.0,
     """Orbit camera from explicit (azimuth, height, radius): the eye at
     (radius cos az, height, radius sin az) looking at the origin. Returns
     (view, proj, eye), f32 on ``device``."""
-    az = torch.as_tensor(azimuth, dtype=_F32, device=device)
-    r = torch.tensor(radius, dtype=_F32, device=az.device)
-    eye = torch.stack([r * torch.cos(az),
-                       torch.tensor(height, dtype=_F32, device=az.device),
+    az = (azimuth.to(_F32) if isinstance(azimuth, torch.Tensor)
+          else on_device(azimuth, device))
+    r = on_device(radius, az.device)
+    eye = torch.stack([r * torch.cos(az), on_device(height, az.device),
                        r * torch.sin(az)])
     view = rmath.look_at_zforward(eye, rmath.vec(0.0, 0.0, 0.0,
                                                  device=az.device))
@@ -57,7 +62,7 @@ def orbit_camera(t, radius: float = 2.5, height: float = 0.8,
                  device="cuda"):
     """The flythrough: :func:`orbit_at` at azimuth 30 degrees a second
     times ``t``."""
-    t = torch.as_tensor(t, dtype=_F32, device=device)
+    t = t.to(_F32) if isinstance(t, torch.Tensor) else on_device(t, device)
     ang = rmath.radians(30.0, device=t.device) * t
     return orbit_at(ang, height, radius, fov_deg=fov_deg, aspect=aspect,
                     device=t.device)
@@ -131,6 +136,12 @@ class Viewer:
                                      self.max_per_tile,
                                      self.cloud.means.device)
 
+    def step(self, t, budget):
+        """The device loop's frame step: (image at ``t`` under
+        ``budget``, the next budget)."""
+        img, st = self.frame(t, budget)
+        return img, self.next_budget(st, budget)
+
     def next_budget(self, stats, budget):
         """The next frame's budget from this frame's stats."""
         if not self.temporal:
@@ -159,6 +170,9 @@ def parse_args(argv=None):
     ap.add_argument("--big-splat-cap", type=int, default=0,
                     help="budget of splats above the 15 px level-1 radius "
                          "that render through the coarse fan (0 = clamp)")
+    ap.add_argument("--host-loop", action="store_true",
+                    help="render each frame eagerly and present it through "
+                         "the swapchain ring instead of the device loop")
     ap.add_argument("--out", default=os.path.join(tempfile.gettempdir(),
                                                   "rayeater_gs"))
     ap.add_argument("--device", default="cuda")
@@ -179,32 +193,43 @@ def viewer(args, cloud: GaussianCloud | None = None) -> Viewer:
 
 
 def run(args, cloud: GaussianCloud | None = None) -> dict:
-    """Render the flythrough; returns {"ms_per_frame", "host_ms_per_frame",
-    "frames", "splats", "image" (the last frame), "png"}."""
+    """Render the flythrough by the path the arguments select; returns
+    :func:`raster_scenes.device_loop`'s or :func:`raster_scenes.host_loop`'s
+    record (``path`` names it) with "frames" (the count), "splats", "last"
+    (the last u8 frame, a numpy array) and "png"; the host loop's also has
+    "image", its last frame as rendered."""
     v = viewer(args, cloud)
-    budget = v.initial_budget()
+    dev = v.cloud.means.device
+    if args.host_loop:
+        budget = v.initial_budget()
 
-    def render(t):
-        nonlocal budget
-        img, st = v.frame(t, budget)
-        budget = v.next_budget(st, budget)
-        return img
+        def render(t):
+            nonlocal budget
+            img, st = v.frame(t, budget)
+            budget = v.next_budget(st, budget)
+            return img
 
-    ms, img, host_ms = frame_loop(render, args.frames, args.device)
+        r = host_loop(render, args.frames, dev, v.width, v.height)
+        r["image"] = r.pop("frame")
+    elif v.temporal:
+        r = device_loop(v.step, args.frames, dev,
+                        carry=v.initial_budget())
+        r["last"] = r.pop("frames")[-1].cpu().numpy()
+    else:
+        r = device_loop(lambda t: v.frame(t)[0], args.frames, dev)
+        r["last"] = r.pop("frames")[-1].cpu().numpy()
     os.makedirs(args.out, exist_ok=True)
-    png = os.path.join(args.out, "frame_last.png")
-    if img is not None:
-        save_png(png, to_srgb_u8(img))
-    return {"ms_per_frame": ms, "host_ms_per_frame": host_ms,
-            "frames": args.frames, "splats": v.cloud.num_splats,
-            "image": img, "png": png}
+    r["png"] = os.path.join(args.out, "frame_last.png")
+    save_png(r["png"], r["last"])
+    r.update(frames=args.frames, splats=v.cloud.num_splats)
+    return r
 
 
 def main(argv=None) -> int:
     args = parse_args(argv)
     r = run(args)
     mode = "static" if args.static_camera else "flythrough"
-    print(f"gs_viewer[{mode}]: {r['frames']} frames {args.width}x"
+    print(f"gs_viewer[{mode}, {r['path']}]: {r['frames']} frames {args.width}x"
           f"{args.height} {r['splats']} splats at {r['ms_per_frame']:.3f} "
           f"ms/frame on {args.device} (saved {r['png']})")
     return 0

@@ -34,7 +34,9 @@ _FLAGS = (*_ARCH, "-std=c++17", "-O3", "--fmad=false", "-Xcompiler", "-fPIC")
 
 _lib = None
 
-#: kernel launches per wrapper, counted where the wrapper launches
+#: kernel launches per wrapper, counted where the wrapper launches; a
+#: captured CUDA graph's launches are counted where ``render_animation``
+#: replays it (capture launches nothing, and its counts are taken off)
 launches = {"k1_project": 0, "k2_composite": 0, "k3_composite_tail": 0,
             "k4_composite_ckpt": 0, "k5_composite_bwd": 0, "k6_raster": 0,
             "k7_raster_binned": 0, "k8_shade_fetch": 0, "k9_subtile": 0,

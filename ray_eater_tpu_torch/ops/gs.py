@@ -51,6 +51,7 @@ import torch
 import torch.nn.functional as F
 
 from ..models.gaussians import eval_sh_colors
+from ..utils import on_device
 from ..utils import pad_to as _pad_to
 from . import _cuda
 
@@ -149,8 +150,8 @@ def _project_scalars(view, proj, width, height, near, max_radius):
     rv, tv = view[:3, :3], view[:3, 3]
     fx = proj[0, 0] * width * 0.5
     fy = proj[1, 1] * height * 0.5
-    tail = torch.tensor([width, height, near, max_radius, 0, 0, 0, 0],
-                        dtype=_F32, device=view.device)
+    tail = on_device([width, height, near, max_radius, 0, 0, 0, 0],
+                     view.device)
     return torch.cat([rv.reshape(-1), tv.reshape(-1),
                       torch.stack([fx, fy, proj[0, 0], proj[1, 1]]),
                       tail]).to(_F32)
@@ -1239,7 +1240,9 @@ def finalize_planes(planes, visited, nty: int, ntx: int, background,
                            align_corners=False)[0]
         rgb = rgb + up[:3].permute(1, 2, 0)
         tt = tt * up[3]
-    bg = torch.as_tensor(background, dtype=_F32).to(planes.device)
+    bg = (background.to(planes.device, _F32)
+          if isinstance(background, torch.Tensor)
+          else on_device(background, planes.device))
     return rgb + tt[..., None] * bg
 
 

@@ -9,8 +9,9 @@ storage image. Box semantics as in the GLSL and the JAX package:
 particle whose box lies wholly off the image writes nothing. The GLSL's
 dispatch quirks are not reproduced: every particle passed in is splatted.
 
-Kernel K10 (``csrc/splat.cu``) builds the coverage mask on CUDA tensors;
-:func:`_splat_plain` builds it on CPU tensors.
+Kernel K10 (``csrc/splat.cu``) builds the coverage mask on CUDA tensors
+in one launch that writes each mask word once (each CTA gathers the boxes
+that meet its region); :func:`_splat_plain` builds it on CPU tensors.
 """
 
 from __future__ import annotations
@@ -62,6 +63,8 @@ def _splat_k10(positions: torch.Tensor, height: int, width: int,
         raise ValueError(f"K10 splat: unsupported device {dev}")
     n = positions.shape[0]
     _cuda.check_arg(positions, "positions", _F32, (n, 2), dev)
+    if positions.data_ptr() % 8:        # the kernel reads float2
+        positions = positions.clone()
     hp, wp = pad_to(height, TILE_H), pad_to(width, TILE_W)
     mask = torch.empty((hp, wp), dtype=_F32, device=dev)
     with torch.cuda.device(dev):
@@ -71,6 +74,16 @@ def _splat_k10(positions: torch.Tensor, height: int, width: int,
     _cuda.check(err, "K10 splat")
     _cuda.launches["k10_splat"] += 1
     return mask
+
+
+def launch_floor() -> None:
+    """Launch one empty kernel on the current CUDA stream (the floor under
+    any single launch, timed beside K10); raises if the loaded kernel
+    library has none (an older ``csrc``)."""
+    import ctypes
+    fn = _cuda.lib().splat_launch_floor
+    fn.argtypes, fn.restype = [ctypes.c_void_p], ctypes.c_int
+    _cuda.check(fn(torch.cuda.current_stream().cuda_stream), "launch floor")
 
 
 def splat_mask(positions: torch.Tensor, height: int, width: int,

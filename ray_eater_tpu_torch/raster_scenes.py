@@ -3,9 +3,11 @@ frame that the entry points (``basic_planes``, ``multipass``), the
 profiler and the chip smoke test render, from the procedural checkerboard
 texture, the basic_planes camera and the meshes here (the two planes, the
 multipass quads, the CPU tests' 288-triangle grid and the 10,082-triangle
-measurement grid of ``tools/profile_raster.py``); :func:`frame_loop` times
-a scene's frames; :func:`draw_setup` builds one pass's draw setup, and
-:func:`cull_probe` a hand-made setup of the fold's hard cases.
+measurement grid of ``tools/profile_raster.py``). :func:`device_loop`
+(``render_animation``, the entry points' default) and :func:`host_loop`
+(eager frames presented through a ``Swapchain``) run an entry point's
+frames; :func:`draw_setup` builds one pass's draw setup, and :func:`cull_probe` a
+hand-made setup of the fold's hard cases.
 """
 
 from __future__ import annotations
@@ -18,8 +20,12 @@ import torch
 
 from . import rmath
 from .core import shaders
+from .core.animation import (encode_frame, frame_times, release,
+                             render_animation)
+from .core.context import Context, ContextConfig
 from .core.pipeline import CompareOp, CullMode, GraphicsPipeline, RasterState
 from .core.resources import Sampler, create_framebuffer, texture_from_array
+from .core.swapchain import Swapchain
 from .io.image import srgb_to_linear
 from .models.mesh import Mesh, mesh, two_planes
 from .ops import raster
@@ -242,25 +248,87 @@ def cull_probe(device="cuda") -> torch.Tensor:
     return setup
 
 
-def frame_loop(render, frames: int, device):
-    """Render one warm-up frame, then ``frames`` frames at t = i/60 by
-    ``render(t)``. Returns (ms per frame, the last frame's result, host ms
-    per frame): the first by CUDA events on a CUDA device and by the host
-    clock on the CPU; the host clock runs from the first timed frame to
-    the end of the last."""
-    render(0.0)
-    last = None
-    cuda = torch.device(device).type == "cuda"
+def device_loop(frame_fn, frames: int, device, srgb: bool = True,
+                keep: str = "all", carry=None) -> dict:
+    """The entry points' default path: the animation of ``frames`` frames
+    through ``render_animation``. On a CUDA device a first call of one
+    frame captures the frame step and a second, timed one replays it
+    ``frames`` times (CUDA events and the host clock); on the CPU one
+    timed call runs the eager loop. Returns {"ms_per_frame",
+    "host_ms_per_frame", "path", "frames" (the u8 frames, or the last one
+    for ``keep="last"``), "capture_s", "launches_per_frame" (the kernel
+    launches of one replayed frame)}. The captured graph is released at
+    the end."""
+    dev = torch.device(device)
+    cuda = dev.type == "cuda"
+    kw = dict(srgb=srgb, keep=keep, carry=carry, device=dev)
+    first: dict = {}
     if cuda:
-        torch.cuda.synchronize(device)
+        render_animation(frame_fn, 1, info=first, **kw)
+        torch.cuda.synchronize(dev)
         e0 = torch.cuda.Event(enable_timing=True)
         e1 = torch.cuda.Event(enable_timing=True)
         e0.record()
     t0 = time.perf_counter()
-    for i in range(frames):
-        last = render(float(np.float32(i / 60.0)))
+    info: dict = {}
+    out = render_animation(frame_fn, frames, info=info, **kw)
     if cuda:
         e1.record()
         e1.synchronize()
-    host = (time.perf_counter() - t0) * 1e3 / max(frames, 1)
-    return (e0.elapsed_time(e1) / max(frames, 1) if cuda else host), last, host
+    host = (time.perf_counter() - t0) * 1e3 / frames
+    release(frame_fn)
+    return {"ms_per_frame": e0.elapsed_time(e1) / frames if cuda else host,
+            "host_ms_per_frame": host,
+            "path": ("device-loop (CUDA graph replay)" if cuda
+                     else "device-loop (eager steps on the CPU)"),
+            "frames": out, "capture_s": first.get("capture_s", 0.0),
+            "launches_per_frame": first.get("launches_per_frame")}
+
+
+def host_loop(frame_fn, frames: int, device, width: int, height: int,
+              srgb: bool = True, present: bool = True,
+              on_image=None) -> dict:
+    """``--host-loop``: one warm-up frame, then ``frames`` eager frames of
+    ``frame_fn(t)`` (a Framebuffer or an image) at the times of
+    ``frame_times``, each encoded on its device and presented through a
+    :class:`Swapchain` ring (with ``present`` False only the last frame
+    is); ``on_image`` gets every presented host frame, oldest first.
+    Returns {"ms_per_frame" (CUDA events on a CUDA device, else the host
+    clock), "host_ms_per_frame", "path", "presented", "last" (the last
+    presented u8 frame, a numpy array), "frame" (the last frame's
+    result)}."""
+    dev = torch.device(device)
+    cuda = dev.type == "cuda"
+    sc = Swapchain(Context(ContextConfig(platform=dev.type)), width, height,
+                   srgb=srgb)
+    out = frame_fn(0.0)
+    if cuda:
+        torch.cuda.synchronize(dev)
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+    presented, last = 0, None
+
+    def got(img):
+        nonlocal presented, last
+        if img is not None:
+            presented, last = presented + 1, img
+            if on_image is not None:
+                on_image(img)
+
+    t0 = time.perf_counter()
+    for t in frame_times(frames).tolist():
+        out = frame_fn(t)
+        if present:
+            got(sc.present_encoded(encode_frame(out, srgb)))
+    if not present:
+        got(sc.present_encoded(encode_frame(out, srgb)))
+    for img in sc.drain():
+        got(img)
+    if cuda:
+        e1.record()
+        e1.synchronize()
+    host = (time.perf_counter() - t0) * 1e3 / frames
+    return {"ms_per_frame": e0.elapsed_time(e1) / frames if cuda else host,
+            "host_ms_per_frame": host, "path": "host-loop",
+            "presented": presented, "last": last, "frame": out}

@@ -16,6 +16,8 @@ import math
 
 import torch
 
+from .utils import on_device
+
 #: World up vector of the reference engine (math.zig:8).
 GLOBAL_UP = (0.0, -1.0, 0.0)
 
@@ -25,7 +27,7 @@ _F32 = torch.float32
 def _f32(x, device) -> torch.Tensor:
     if isinstance(x, torch.Tensor):
         return x.to(_F32)
-    return torch.tensor(x, dtype=_F32, device=device)
+    return on_device(x, device)
 
 
 def vec(*vals, device="cuda") -> torch.Tensor:
@@ -38,7 +40,7 @@ def vec(*vals, device="cuda") -> torch.Tensor:
 def radians(deg, device="cuda") -> torch.Tensor:
     """Degrees to radians, as float32 ``deg * f32(pi/180)``."""
     d = _f32(deg, device)
-    return d * torch.tensor(math.pi / 180.0, dtype=_F32, device=d.device)
+    return d * on_device(math.pi / 180.0, d.device)
 
 
 def mag(v: torch.Tensor) -> torch.Tensor:
@@ -109,15 +111,14 @@ def look_at(eye: torch.Tensor, center: torch.Tensor,
     eye = eye.to(_F32)
     center = center.to(_F32)
     if world_up is None:
-        world_up = torch.tensor(GLOBAL_UP, dtype=_F32, device=eye.device)
+        world_up = on_device(GLOBAL_UP, eye.device)
     z = norm(sub(center, eye))       # forward
     x = norm(cross(z, world_up))     # right
     y = norm(cross(x, z))            # up
     rot3 = torch.stack([x, y, -z])
     t = torch.stack([-dot(x, eye), -dot(y, eye), -dot(z, eye)])
     top = torch.cat([rot3, t[:, None]], 1)
-    bottom = torch.tensor([[0.0, 0.0, 0.0, 1.0]], dtype=_F32,
-                          device=eye.device)
+    bottom = on_device([[0.0, 0.0, 0.0, 1.0]], eye.device)
     return torch.cat([top, bottom], 0)
 
 
@@ -140,7 +141,7 @@ def look_at_zforward(eye: torch.Tensor, center: torch.Tensor,
     eye = eye.to(_F32)
     center = center.to(_F32)
     if world_up is None:
-        world_up = torch.tensor(GLOBAL_UP, dtype=_F32, device=eye.device)
+        world_up = on_device(GLOBAL_UP, eye.device)
     z = norm(sub(center, eye))       # forward
     x = norm(cross(z, world_up))     # right
     y = norm(cross(x, z))            # up
@@ -148,8 +149,7 @@ def look_at_zforward(eye: torch.Tensor, center: torch.Tensor,
     nr = -rot3
     t = nr[:, 0] * eye[0] + nr[:, 1] * eye[1] + nr[:, 2] * eye[2]
     top = torch.cat([rot3, t[:, None]], 1)
-    bottom = torch.tensor([[0.0, 0.0, 0.0, 1.0]], dtype=_F32,
-                          device=eye.device)
+    bottom = on_device([[0.0, 0.0, 0.0, 1.0]], eye.device)
     return torch.cat([top, bottom], 0)
 
 
@@ -158,9 +158,9 @@ def perspective(fov, aspect, near, far, device="cuda") -> torch.Tensor:
     [0, 1], ``w_clip = +z_view``."""
     fov = _f32(fov, device)
     dev = fov.device
-    aspect = torch.tensor(aspect, dtype=_F32, device=dev)
-    near = torch.tensor(near, dtype=_F32, device=dev)
-    far = torch.tensor(far, dtype=_F32, device=dev)
+    aspect = on_device(aspect, dev)
+    near = on_device(near, dev)
+    far = on_device(far, dev)
     vp = 1.0 / torch.tan(fov / 2.0)
     as_ = vp / aspect
     z = torch.zeros_like(vp)

@@ -1,7 +1,10 @@
 """K1–K10 on a CUDA device against their plain PyTorch versions, one
 training step through K4 and K5, raster frames through K6–K9, the
-compute_drawing sample through K10 and K6, and SH colours through the
-gs_viewer entry point.
+compute_drawing sample through K10 and K6, SH colours through the
+gs_viewer entry point, and ``render_animation``'s CUDA-graph replay
+against its eager loop (raster, fog with its budget carry and
+compute_drawing frames equal u8 for u8; a frame step that copies a host
+scalar to the device fails to capture and raises).
 
 Marked ``gpu``: each test decides inside itself whether a CUDA device is
 present and skips when there is none. Run on a GPU machine with
@@ -527,12 +530,13 @@ def test_raster_frames_count_launches():
     from ray_eater_tpu_torch.ops import _cuda as kernels
     dev = _cuda()
     kernels.reset_launches()
-    r = basic_planes.run(basic_planes.parse_args(["--frames", "2"]))
+    r = basic_planes.run(basic_planes.parse_args(["--frames", "2",
+                                                  "--host-loop"]))
     assert kernels.launches == dict(NO_LAUNCHES, k6_raster=3)
-    assert bool(torch.isfinite(r["fb"].color).all())
+    assert bool(torch.isfinite(r["frame"].color).all())
     kernels.reset_launches()
     multipass.run(multipass.parse_args(["--frames", "2", "--width", "480",
-                                        "--height", "270"]))
+                                        "--height", "270", "--host-loop"]))
     assert kernels.launches == dict(NO_LAUNCHES, k6_raster=6)
     sc = rs.scene("grid288", dev, W, H)
     kernels.reset_launches()
@@ -561,6 +565,57 @@ def test_k10_matches_plain(h, w, n, r):
     assert 0 < float(k.mean()) < 1
 
 
+@pytest.mark.parametrize("h,w,n,r,full", [
+    (600, 900, 1024, 20, False), (1080, 1920, 65_536, 20, True),
+    (2160, 3840, 65_536, 4, False)])
+def test_k10_matches_plain_at_the_timed_shapes(h, w, n, r, full):
+    """The shapes ``time_splat.py`` times: the compute_drawing sample's
+    particles over its 900x600 image and 65,536 drawn the same way over
+    1920x1080, radius 20, where the boxes cover the whole image; and the
+    65,536 at radius 4 over 3840x2160, where they cover part of it, so
+    that equality at that count can fail for a kernel that writes ones."""
+    from ray_eater_tpu_torch import compute_drawing
+    from ray_eater_tpu_torch.ops import splat
+    dev = _cuda()
+    p = torch.from_numpy(compute_drawing.particle_positions(0, w, h, n)).to(
+        dev)
+    k = splat._splat_k10(p, h, w, r)
+    assert torch.equal(k, splat._splat_plain(p, h, w, r))
+    cover = float(k[:h, :w].mean())
+    assert cover == 1 if full else 0 < cover < 1
+
+
+def test_k10_matches_plain_on_edge_boxes():
+    """Boxes on the image's and the CTA regions' edges (columns at
+    multiples of 128 +- r, rows at multiples of 8 and 64 +- r), boxes one
+    pixel wide and past every side, fractional and negative positions
+    (truncation toward zero), no particles, and positions that start at an
+    odd float offset."""
+    from ray_eater_tpu_torch.ops import splat
+    dev = _cuda()
+    h, w, r = 200, 300, 6
+    xs = [0, 0.5, -0.5, -5.9, 1, r, 127, 128, 128 + r, 128 - r, 256 - r,
+          299, 299.9, 300, 300 + r - 1, 300 + r, 305.5, -r + 1, -r]
+    ys = [0, 7, 8, 63, 64, 64 + r, 64 - r, 128, 199, 199.5, 200 + r - 1,
+          200 + r, -r + 1, -r]
+    pos = np.array([[x, y] for x in xs for y in ys], np.float32)
+    for n in (0, 1, pos.shape[0]):
+        p = torch.from_numpy(pos[:n]).to(dev)
+        k = splat._splat_k10(p, h, w, r)
+        assert k.shape == (200, 384)
+        assert torch.equal(k, splat._splat_plain(p, h, w, r)), n
+    for rad in (1, 40):
+        p = torch.from_numpy(pos).to(dev)
+        assert torch.equal(splat._splat_k10(p, h, w, rad),
+                           splat._splat_plain(p, h, w, rad)), rad
+    flat = torch.from_numpy(np.concatenate([[7.0], pos.reshape(-1)])
+                            .astype(np.float32)).to(dev)
+    odd = flat[1:].view(-1, 2)
+    assert odd.data_ptr() % 8
+    assert torch.equal(splat._splat_k10(odd, h, w, r),
+                       splat._splat_plain(odd, h, w, r))
+
+
 def test_compute_drawing_counts_launches(tmp_path):
     from ray_eater_tpu_torch import compute_drawing
     from ray_eater_tpu_torch.core.swapchain import encode_present
@@ -568,11 +623,12 @@ def test_compute_drawing_counts_launches(tmp_path):
     _cuda()
     kernels.reset_launches()
     r = compute_drawing.run(compute_drawing.parse_args(
-        ["--frames", "2", "--out", str(tmp_path)]))
+        ["--frames", "2", "--host-loop", "--out", str(tmp_path)]))
     assert kernels.launches == dict(NO_LAUNCHES, k10_splat=1, k6_raster=3)
     img = r["drawing"].image
     assert torch.equal(r["u8"], encode_present(img, img.shape[1],
-                                               img.shape[0], srgb=False))
+                                               img.shape[0],
+                                               srgb=False).cpu())
 
 
 def test_sh_colors_match_cpu_and_viewer_counts_launches(tmp_path):
@@ -598,7 +654,85 @@ def test_sh_colors_match_cpu_and_viewer_counts_launches(tmp_path):
     kernels.reset_launches()
     r = gs_viewer.run(gs_viewer.parse_args(
         ["--ply", ply, "--frames", "2", "--width", str(W), "--height",
-         str(H), "--out", str(tmp_path)]))
+         str(H), "--host-loop", "--out", str(tmp_path)]))
     assert kernels.launches == dict(NO_LAUNCHES, k1_project=3,
                                     k2_composite=3)
     assert bool(torch.isfinite(r["image"]).all())
+
+
+# ---- render_animation: CUDA-graph replay ------------------------------------
+
+def _replay_equals_eager(frame_fn, n, carry=None, srgb=True, keep="all"):
+    """Two render_animation calls (capture, then the cached graph) equal
+    the eager loop; the launch counters count the warm-up steps and every
+    replayed frame, nothing for the capture."""
+    from ray_eater_tpu_torch.core import animation
+    from ray_eater_tpu_torch.ops import _cuda as kernels
+    info = {}
+    kernels.reset_launches()
+    got = animation.render_animation(frame_fn, n, srgb=srgb, keep=keep,
+                                     carry=carry, info=info)
+    again = animation.render_animation(frame_fn, n, srgb=srgb, keep=keep,
+                                       carry=carry)
+    steps = animation.WARMUP_STEPS + 2 * n
+    assert kernels.launches == {k: steps * v for k, v in
+                                info["launches_per_frame"].items()}
+    want_info = {}
+    want = animation.render_animation_eager(frame_fn, n, srgb=srgb,
+                                            keep=keep, carry=carry,
+                                            info=want_info)
+    animation.release(frame_fn)
+    assert info["path"] == "graph" and info["captured"]
+    assert torch.equal(got, want) and torch.equal(again, want)
+    return info, want_info
+
+
+def test_replay_equals_eager_on_a_raster_frame():
+    from ray_eater_tpu_torch import raster_scenes as rs
+    dev = _cuda()
+    for name in ("basic_planes", "grid288"):
+        sc = rs.scene(name, dev, 256, 128)
+        info, _ = _replay_equals_eager(sc.frame, 4)
+        key = "k6_raster" if name == "basic_planes" else "k7_raster_binned"
+        assert info["launches_per_frame"][key] == 1
+
+
+def test_replay_equals_eager_on_a_fog_frame_with_budgets():
+    from ray_eater_tpu_torch import gs_viewer
+    dev = _cuda()
+    args = gs_viewer.parse_args(["--splats", "20000", "--width", str(W),
+                                 "--height", str(H), "--max-per-tile", "64",
+                                 "--device", "cuda"])
+    v = gs_viewer.viewer(args, random_cloud(20_000, seed=1, extent=1.0,
+                                            scale_range=(0.004, 0.02),
+                                            device=dev))
+    info, want = _replay_equals_eager(v.step, 5, carry=v.initial_budget())
+    assert torch.equal(info["carry"], want["carry"])
+    assert info["launches_per_frame"]["k2_composite"] == 1
+
+
+def test_replay_equals_eager_on_compute_drawing():
+    from ray_eater_tpu_torch import compute_drawing
+    _cuda()
+    d = compute_drawing.setup("cuda", 0, 300, 200, 32)
+    _replay_equals_eager(d.frame, 3, srgb=False, keep="last")
+
+
+def test_capture_of_a_host_copy_raises():
+    """A frame step that copies a Python scalar to the device each frame
+    cannot be captured: render_animation raises, naming the op, and never
+    renders the frames eagerly instead."""
+    from ray_eater_tpu_torch.core import animation
+    dev = _cuda()
+    calls = []
+
+    def frame(t):
+        calls.append(1)
+        scale = torch.tensor(0.5, device=dev)        # the host copy
+        return torch.ones((16, 128, 4), device=dev) * scale * t
+
+    with pytest.raises(animation.GraphCaptureError, match="torch.tensor"):
+        animation.render_animation(frame, 8, device=dev)
+    assert len(calls) == animation.WARMUP_STEPS + 1
+    torch.cuda.synchronize()
+    assert float(torch.ones(1, device=dev).sum()) == 1.0

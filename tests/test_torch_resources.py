@@ -158,13 +158,14 @@ def test_entry_points_and_uploads_default_to_cuda():
 
 def test_multipass_entry_point_on_cpu(tmp_path):
     """Two frames of the prepass + LESS_EQUAL lit pass at 256x144 through
-    the entry point: the lit pass draws every pixel the prepass kept, and
-    the PNG is written."""
+    the entry point's host loop (whose record keeps the last framebuffer):
+    the lit pass draws every pixel the prepass kept, and the PNG is
+    written."""
     args = multipass.parse_args(["--frames", "2", "--width", "256",
                                  "--height", "144", "--device", "cpu",
-                                 "--out", str(tmp_path)])
+                                 "--host-loop", "--out", str(tmp_path)])
     r = multipass.run(args)
-    fb = r["fb"]
+    fb = r["frame"]
     assert r["triangles"] == 32 and os.path.exists(r["png"])
     drawn = fb.depth[:144, :256] < 1.0
     assert drawn.float().mean() > 0.05

@@ -181,8 +181,8 @@ def test_gs_viewer_matches_direct_render(tmp_path):
     gaussians.save_ply(ply, gaussians.cloud_from_numpy(d, device="cpu"))
     args = gs_viewer.parse_args(
         ["--ply", ply, "--device", "cpu", "--frames", "2", "--width",
-         str(W), "--height", str(H), "--max-per-tile", "32", "--out",
-         str(tmp_path / "out")])
+         str(W), "--height", str(H), "--max-per-tile", "32", "--host-loop",
+         "--out", str(tmp_path / "out")])
     r = gs_viewer.run(args)
     with open(r["png"], "rb") as f:
         assert f.read(8) == b"\x89PNG\r\n\x1a\n"
