@@ -50,7 +50,31 @@ kernel against its plain PyTorch version, and drives the port's main paths:
   final LOD budget (the carry) of fog and SH equal too; ms/frame of
   replay and of the eager loop, and the capture's seconds;
 * the Swapchain phase: ``basic_planes --host-loop`` presents all 60
-  frames through the ring in FIFO order.
+  frames through the ring in FIFO order;
+* the native tier: its g++ build's seconds, and its ``read_ply`` of the
+  248 MB degree-3 PLY equal to the numpy reader, with each one's seconds
+  (``load_ply`` then reads through it);
+* textured basic_planes: the checkerboard written with ``encode_png``,
+  found through ``$RAYEATER_TEXTURE`` and read back by
+  ``texture_from_file``; 60 replayed frames u8-equal to the array
+  texture's, and the entry point's last frame too;
+* the viewer: ``gs_viewer --serve``'s frame builder (``ServeFrames``) on
+  the SH cloud at 1920x1080, each replayed frame (and its next budget)
+  equal to the eager frame at the same camera and budget over orbit,
+  zoom and budget steps; ms a served frame; the capture's seconds at each
+  extent of a resize round trip (1080p, 720p, 1080p), the graph cache no
+  larger after it; and ``--serve`` without PIL exits 2 with its message;
+* baked frames: the fog frame (1M / 1080p, the budget carried) and the
+  multipass RenderGraph frame (1080p) through ``save_baked`` and
+  ``load_baked``: seconds to save and to load, file size, loaded output
+  bit-equal to the unbaked frame, and an 8-frame ``render_animation`` of
+  the loaded fog program u8-equal to the unbaked one's;
+* ``lod_tail`` fog: the PSNR gate's samples with the slab proxy, beside
+  the same figure without it (printed, not gated).
+
+Every kernel is called through its ``torch.library`` custom op
+(``rayeater::k1_project`` .. ``k10_splat``), whose CUDA implementation
+launches it and counts the launch.
 
 The entry points (basic_planes, multipass, compute_drawing) run their
 default device loop, ``render_animation``: two eager warm-up steps, then
@@ -71,8 +95,10 @@ exits 2 and prints no result.
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -161,6 +187,18 @@ SMALL_RASTER_SHARE = 1e-3
 FOLD_OPS = 14            # f32 operations per evaluated (row, pixel) pair
 SETUP_ROW_BYTES = 16 * 4  # one setup/pack row
 SUBTILE_PIXEL_BYTES = 52  # K9: 9 coordinate planes read, 4 channels written
+
+# ---- this slice's phases ------------------------------------------------------
+#: the checkerboard as a PNG file, read back through texture_from_file
+TEXTURE_PNG = "chiprun_out/raster/checker.png"
+#: the serve loop's camera states (azimuth, height, radius): orbit steps,
+#: a height change and zooms in and out, each frame under the budget the
+#: frame before left
+VIEWER_STEPS = ((0.0, 0.8, 2.5), (0.05, 0.8, 2.5), (0.5, 1.1, 2.5),
+                (0.5, 1.1, 1.6), (0.9, 0.4, 1.6), (1.3, 0.4, 3.2))
+VIEWER_SERVED = 30       # timed served frames at 1080p
+VIEWER_RESIZE = ((1280, 720), (1920, 1080))   # the resize round trip
+BAKED_FRAMES = 8         # frames of a baked program held to the unbaked
 
 
 def log(*a):
@@ -472,6 +510,41 @@ class BenchFrames:
             dry_floor=self.knobs["dry_floor"])
 
 
+def gate(torch, scene: str, frames):
+    """The PSNR gate's samples: at each of ``GATE_SAMPLES`` times, the LOD
+    frame of ``frames`` (warmed by a ``GATE_WARMUP``-frame lead-in of
+    budgets when temporal) against its exact frame. Returns the lists
+    (PSNR dB, pairs dropped, side-channel splats dropped, lossless
+    certificate, exact-frame ms)."""
+    warmup = GATE_WARMUP if frames.temporal else 0
+    frame, next_budget = frames.frame, frames.next_budget
+    budget0 = frames.initial_budget()
+    psnrs, drops, bigdrops, certs, exact_ms = [], [], [], [], []
+    for k in range(GATE_SAMPLES):
+        ts = np.float32((FRAMES - 1) * k / (GATE_SAMPLES - 1) / 60.0)
+        b = budget0
+        for i in range(warmup):
+            t = np.float32(ts - np.float32(warmup - i) / np.float32(60.0))
+            _, st = frame(f32(t), b)
+            b = next_budget(st, b)
+        a, st = frame(f32(ts), b)
+        s0 = torch.cuda.Event(enable_timing=True)
+        s1 = torch.cuda.Event(enable_timing=True)
+        s0.record()
+        ref = frames.exact(f32(ts))
+        s1.record()
+        s1.synchronize()
+        exact_ms.append(s0.elapsed_time(s1))
+        require(bool(torch.isfinite(a).all() & torch.isfinite(ref).all()),
+                f"non-finite {scene} gate frame at t={ts}")
+        mse = float(torch.mean((a - ref) ** 2))
+        psnrs.append(10 * np.log10(1.0 / max(mse, 1e-12)))
+        drops.append(int(st["overflow_pairs"]))
+        bigdrops.append(int(st["overflow_big_splats"]))
+        certs.append(bool(st["lossless"]))
+    return psnrs, drops, bigdrops, certs, exact_ms
+
+
 def main_path(torch, cuda, scene: str, frames):
     """One flythrough through ``frames`` (a :class:`BenchFrames` or a
     ``gs_viewer.Viewer``): a 60-frame LOD window (temporal budgets if
@@ -515,29 +588,7 @@ def main_path(torch, cuda, scene: str, frames):
     require(img.shape == (H, W, 3), f"{scene} image shape {tuple(img.shape)}")
     require(bool(finite), f"non-finite pixels in the {scene} LOD window")
 
-    psnrs, drops, bigdrops, certs, exact_ms = [], [], [], [], []
-    for k in range(GATE_SAMPLES):
-        ts = np.float32((FRAMES - 1) * k / (GATE_SAMPLES - 1) / 60.0)
-        b = budget0
-        for i in range(warmup):
-            t = np.float32(ts - np.float32(warmup - i) / np.float32(60.0))
-            _, st = frame(f32(t), b)
-            b = next_budget(st, b)
-        a, st = frame(f32(ts), b)
-        s0 = torch.cuda.Event(enable_timing=True)
-        s1 = torch.cuda.Event(enable_timing=True)
-        s0.record()
-        ref = frames.exact(f32(ts))
-        s1.record()
-        s1.synchronize()
-        exact_ms.append(s0.elapsed_time(s1))
-        require(bool(torch.isfinite(a).all() & torch.isfinite(ref).all()),
-                f"non-finite {scene} gate frame at t={ts}")
-        mse = float(torch.mean((a - ref) ** 2))
-        psnrs.append(10 * np.log10(1.0 / max(mse, 1e-12)))
-        drops.append(int(st["overflow_pairs"]))
-        bigdrops.append(int(st["overflow_big_splats"]))
-        certs.append(bool(st["lossless"]))
+    psnrs, drops, bigdrops, certs, exact_ms = gate(torch, scene, frames)
     torch.cuda.synchronize()
     launches = dict(cuda.launches)
     log(f"{scene} LOD quality vs exact: min %.2f dB over %d sampled frames "
@@ -958,7 +1009,6 @@ def raster_paths(torch, cuda, dev):
     its launches counted from zero; the subtile-vs-gather PSNR gate.
     Returns the launch counts of each path."""
     import dataclasses
-    import os
     from ray_eater_tpu_torch import basic_planes, multipass
     from ray_eater_tpu_torch import raster_scenes as rs
     from ray_eater_tpu_torch.io.image import save_png, to_srgb_u8
@@ -1366,7 +1416,6 @@ def sh_path(torch, gs, cuda, dev):
     gs_viewer's frames at its defaults (LOD with temporal budgets, SH
     colours at the eye) through main_path, then its animation phase.
     Returns the launch counts and the animation record."""
-    import os
     from ray_eater_tpu_torch import gs_viewer
     from ray_eater_tpu_torch.models.gaussians import (eval_sh_colors,
                                                       load_ply, save_ply)
@@ -1375,8 +1424,9 @@ def sh_path(torch, gs, cuda, dev):
     try:
         t0 = time.perf_counter()
         save_ply(SH_PLY, src)
-        t1 = time.perf_counter()
         size = os.path.getsize(SH_PLY)
+        native_read_ply(SH_PLY, size)
+        t1 = time.perf_counter()
         cloud = load_ply(SH_PLY, device=dev)
         t2 = time.perf_counter()
     finally:
@@ -1386,7 +1436,8 @@ def sh_path(torch, gs, cuda, dev):
             for k in ("means", "scales", "quats", "opacities", "colors",
                       "sh_rest")}
     log(f"SH PLY {N_SPLATS} splats, degree {cloud.sh_degree}: {size} B, "
-        f"save_ply {t1 - t0:.2f} s, load_ply {t2 - t1:.2f} s; round trip "
+        f"save_ply + the two readers {t1 - t0:.2f} s, load_ply (native "
+        f"reader) {t2 - t1:.2f} s; round trip "
         f"max abs " + " ".join(f"{k} {v:.2e}" for k, v in errs.items()))
     require(cloud.sh_degree == 3 and errs["means"] == 0.0
             and errs["sh_rest"] == 0.0, "PLY round trip: means/sh_rest")
@@ -1423,10 +1474,300 @@ def sh_path(torch, gs, cuda, dev):
     anim = animation_phase(torch, cuda, "SH (gs_viewer)", v.step,
                            carry=v.initial_budget(),
                            finite=img_finite(torch))
+    viewer_phase(torch, cuda, cloud)
     return launches, anim
 
 
+# ---- this slice: native tier, textured basic_planes, viewer, baked frames,
+# lod_tail ---------------------------------------------------------------------
+
+def native_build():
+    """Builds the native tier (g++) from the checkout's copy of its
+    source; returns the build's seconds."""
+    from ray_eater_tpu_torch.native import loader as native
+    so = native.library_path()
+    prebuilt = so.exists()
+    t0 = time.perf_counter()
+    native.build()
+    build_s = time.perf_counter() - t0
+    require(native.available(), "the native tier did not load")
+    log(f"native tier: g++ build {build_s:.2f} s ({so.name}"
+        f"{', found built' if prebuilt else ''})")
+    return build_s
+
+
+def native_read_ply(path: str, size: int):
+    """The native PLY reader on ``path`` equal to the numpy reader;
+    returns (native s, numpy s)."""
+    from ray_eater_tpu_torch.models.gaussians import _read_ply_numpy
+    from ray_eater_tpu_torch.native import loader as native
+    t0 = time.perf_counter()
+    props, data = native.read_ply(path)
+    t1 = time.perf_counter()
+    want_props, want = _read_ply_numpy(path)
+    t2 = time.perf_counter()
+    equal = props == want_props and np.array_equal(data, want)
+    log(f"native read_ply of the {size} B PLY ({data.shape[0]} x "
+        f"{data.shape[1]} f32): {t1 - t0:.2f} s; numpy reader "
+        f"{t2 - t1:.2f} s; equal {equal}")
+    require(equal, "native read_ply differs from the numpy reader")
+    return t1 - t0, t2 - t1
+
+
+def textured_planes_phase(torch, dev):
+    """basic_planes textured from a file: the checkerboard written by
+    encode_png, found through $RAYEATER_TEXTURE and read back by
+    texture_from_file; its texel tables, ``FRAMES`` replayed frames and
+    the entry point's last frame equal the array texture's, u8 for u8."""
+    from ray_eater_tpu_torch import basic_planes
+    from ray_eater_tpu_torch import raster_scenes as rs
+    from ray_eater_tpu_torch.core import animation
+    from ray_eater_tpu_torch.core.resources import texture_from_array
+    from ray_eater_tpu_torch.io.image import encode_png
+    os.makedirs(os.path.dirname(TEXTURE_PNG), exist_ok=True)
+    with open(TEXTURE_PNG, "wb") as f:
+        f.write(encode_png(rs.checker_rgba()))
+    os.environ["RAYEATER_TEXTURE"] = TEXTURE_PNG
+    try:
+        t0 = time.perf_counter()
+        tex = basic_planes.load_texture(dev)
+        load_s = time.perf_counter() - t0
+        ref = texture_from_array(rs.checker_rgba(), device=dev)
+        tables = all(torch.equal(getattr(tex, k), getattr(ref, k))
+                     for k in ("data", "packed"))
+        by_file = rs.scene("basic_planes", dev, texture=tex).frame
+        by_array = rs.scene("basic_planes", dev).frame
+        got = animation.render_animation(by_file, FRAMES, device=dev)
+        want = animation.render_animation(by_array, FRAMES, device=dev)
+        animation.release(by_file)
+        animation.release(by_array)
+        differ = int((got != want).any(-1).sum())
+        r = basic_planes.run(basic_planes.parse_args(
+            ["--frames", str(FRAMES), "--device", str(dev), "--out",
+             f"{RASTER_OUT}/basic_planes_textured"]))
+    finally:
+        del os.environ["RAYEATER_TEXTURE"]
+    last = np.array_equal(r["last"], want[-1].cpu().numpy())
+    log(f"textured basic_planes ({TEXTURE_PNG}, {os.path.getsize(TEXTURE_PNG)}"
+        f" B): texture_from_file {load_s:.3f} s, tables equal {tables}; "
+        f"{FRAMES} replayed frames differing from the array texture's in "
+        f"{differ} pixels; entry point [{r['path']}] last frame equal "
+        f"{last}, {r['ms_per_frame']:.3f} ms/frame")
+    require(tables and differ == 0 and last,
+            "textured basic_planes differs from the array texture's frames")
+
+
+def viewer_phase(torch, cuda, cloud):
+    """gs_viewer --serve's frame builder (``ServeFrames``) at its defaults
+    (1920x1080, LOD with budgets, SH colours at the eye) on ``cloud``:
+    at each of ``VIEWER_STEPS`` the replayed frame and its next budget
+    equal the eager frame's at the same camera and budget; then
+    ``VIEWER_SERVED`` timed frames; then the resize round trip (1080p,
+    720p, 1080p), each extent captured anew and its old graph released,
+    the graph cache no larger after it. Returns the record."""
+    from ray_eater_tpu_torch import gs_viewer
+    from ray_eater_tpu_torch.core import animation
+    dev = cloud.means.device
+    args = gs_viewer.parse_args(["--serve", "0"])
+    cuda.reset_launches()
+
+    def checked(fr, az, hgt, rad):
+        info = {}
+        want = animation.render_animation_eager(
+            fr.step, 1, keep="last", carry=fr.carry(az, hgt, rad),
+            device=dev, info=info)
+        got = fr(az, hgt, rad)
+        return (bool(torch.equal(got, want)
+                     and torch.equal(fr.budget, info["carry"][3])),
+                bool(torch.isfinite(got.float()).all()))
+
+    fr = gs_viewer.ServeFrames(cloud, args, args.width, args.height)
+    results = [checked(fr, *c) for c in VIEWER_STEPS]
+    capture_s = [replayed_capture(fr)]
+    az, hgt, rad = VIEWER_STEPS[-1]
+    torch.cuda.synchronize()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    e0.record()
+    for i in range(VIEWER_SERVED):
+        host = fr(az + 0.01 * i, hgt, rad).cpu().numpy()
+    e1.record()
+    e1.synchronize()
+    served_ms = (time.perf_counter() - t0) * 1e3 / VIEWER_SERVED
+    served_dev_ms = e0.elapsed_time(e1) / VIEWER_SERVED
+    lpf = fr.info["launches_per_frame"]
+    graphs = len(animation._graphs)
+    for w, h in VIEWER_RESIZE:
+        fr.release()
+        fr = gs_viewer.ServeFrames(cloud, args, w, h)
+        results.append(checked(fr, az, hgt, rad))
+        capture_s.append(replayed_capture(fr))
+    graphs_after = len(animation._graphs)
+    fr.release()
+    launches = dict(cuda.launches)
+    log(f"viewer frame builder ({cloud.num_splats} splats, SH at the eye, "
+        f"mpt {args.max_per_tile}, tile_w {args.tile_w}): replayed frames "
+        f"equal to eager (frame, next budget) {[r[0] for r in results]}, "
+        f"finite {all(r[1] for r in results)}; {VIEWER_SERVED} served "
+        f"frames {served_ms:.3f} ms/frame (host clock, replay + copy of "
+        f"the u8 frame to the host, {host.shape}), {served_dev_ms:.3f} "
+        f"ms/frame (CUDA events); capture s at 1920x1080, then the resize "
+        f"to {VIEWER_RESIZE[0]} and back: {capture_s}; graph cache "
+        f"{graphs} before the resize round trip, {graphs_after} after; "
+        f"launches a replayed frame {lpf}; launches over the phase "
+        f"{launches}")
+    require(all(r[0] for r in results),
+            "viewer: a replayed frame differs from the eager frame")
+    require(all(r[1] for r in results), "viewer: non-finite frame")
+    require(graphs_after == graphs, f"viewer: the graph cache grew across "
+            f"the resize round trip ({graphs} -> {graphs_after})")
+    require(lpf["k1_project"] == 1 and lpf["k2_composite"] == 1,
+            f"viewer: launches a replayed frame {lpf}")
+    return dict(served_ms=served_ms, served_dev_ms=served_dev_ms,
+                capture_s=capture_s)
+
+
+def replayed_capture(fr):
+    """The capture seconds of ``fr`` (a ServeFrames), whose frames must
+    replay a graph."""
+    require(fr.info.get("path") == "graph",
+            f"viewer: frames ran by {fr.info.get('path')}, not a graph")
+    return round(fr.capture_s, 3)
+
+
+def serve_without_pil():
+    """``gs_viewer --serve`` where PIL cannot be imported exits at once,
+    non-zero, with a message that names PIL, before it binds a port."""
+    code = ("import sys; sys.modules['PIL'] = None; "
+            "sys.modules['PIL.Image'] = None; "
+            "from ray_eater_tpu_torch import gs_viewer; "
+            "sys.exit(gs_viewer.main(['--serve', '0']))")
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, timeout=300,
+                       cwd=os.path.dirname(os.path.abspath(__file__)))
+    el = time.perf_counter() - t0
+    log(f"gs_viewer --serve without PIL: exit {r.returncode} in {el:.1f} s, "
+        f"stderr {r.stderr.strip()!r}")
+    require(r.returncode == 2 and "PIL (pillow) is not installed"
+            in r.stderr, "gs_viewer --serve without PIL did not exit with "
+            "its message")
+
+
+def bake_phase(torch, name: str, prog, env, frames, equal):
+    """``prog`` (a FrameProgram) baked on the example ``env``, saved,
+    loaded; ``frames`` (a list of envs) through both, ``equal(a, b)`` of
+    their outputs must hold. Returns (loaded, save s, bytes, load s)."""
+    from ray_eater_tpu_torch.graph import render_graph as tg
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, f"{name}.pt2")
+        t0 = time.perf_counter()
+        prog.save_baked(path, **env)
+        t1 = time.perf_counter()
+        size = os.path.getsize(path)
+        loaded = tg.load_baked(path)
+        t2 = time.perf_counter()
+    ok = [equal(prog(**e), loaded(**e)) for e in frames]
+    log(f"baked {name}: save_baked {t1 - t0:.2f} s, {size} B, load_baked "
+        f"{t2 - t1:.2f} s; loaded output bit-equal to the unbaked frame "
+        f"{ok}")
+    require(all(ok), f"baked {name}: loaded output differs from unbaked")
+    return loaded, t1 - t0, size, t2 - t1
+
+
+def baked_fog_phase(torch, fog):
+    """The fog frame (``fog``: the 1M-splat BenchFrames) as a one-pass
+    RenderGraph (externals t, budget; outputs image, budget), baked and
+    loaded: ``BAKED_FRAMES`` eager frames with the budget carried, then a
+    ``BAKED_FRAMES``-frame render_animation of the loaded program,
+    u8-equal to the unbaked program's."""
+    from ray_eater_tpu_torch.core import animation
+    from ray_eater_tpu_torch.graph.render_graph import RenderGraph
+    dev = fog.cloud.means.device
+
+    def render(i):
+        img, st = fog.frame(i["t"], i["budget"])
+        return {"image": img, "budget": fog.next_budget(st, i["budget"])}
+
+    prog = (RenderGraph("fog").external("t", "budget")
+            .add_pass("render", render, reads=("t", "budget"),
+                      writes=("image", "budget"))
+            .output("image", "budget").bake())
+    b0 = fog.initial_budget()
+    frames, b = [], b0
+    for i in range(BAKED_FRAMES):
+        t = torch.full((), f32(np.float32(i) / np.float32(60.0)),
+                       device=dev)
+        frames.append(dict(t=t, budget=b))
+        b = prog(t=t, budget=b)["budget"]
+    loaded, *times = bake_phase(
+        torch, "fog", prog, frames[0], frames,
+        lambda a, c: bool(torch.equal(a["image"], c["image"])
+                          and torch.equal(a["budget"], c["budget"])))
+
+    def step_of(p):
+        def step(t, budget):
+            out = p(t=t, budget=budget)
+            return out["image"], out["budget"]
+        return step
+
+    unbaked, baked = step_of(prog), step_of(loaded)
+    want = animation.render_animation(unbaked, BAKED_FRAMES, carry=b0,
+                                      device=dev)
+    info = {}
+    got = animation.render_animation(baked, BAKED_FRAMES, carry=b0,
+                                     device=dev, info=info)
+    animation.release(unbaked)
+    animation.release(baked)
+    differ = int((got != want).any(-1).sum())
+    log(f"baked fog: {BAKED_FRAMES}-frame render_animation of the loaded "
+        f"program [{info['path']}] differs from the unbaked one's in "
+        f"{differ} pixels; launches a replayed frame "
+        f"{info['launches_per_frame']}")
+    require(differ == 0, "baked fog: animation differs from the unbaked")
+    return times
+
+
+def baked_multipass_phase(torch, dev):
+    """The multipass RenderGraph frame at 1920x1080 baked and loaded; its
+    framebuffer at three times bit-equal to the unbaked frame's."""
+    from ray_eater_tpu_torch import multipass
+    from ray_eater_tpu_torch import raster_scenes as rs
+    prog = multipass.frame_graph(rs.scene("multipass", dev))
+    frames = [dict(t=torch.full((), t, device=dev)) for t in (0.0, 0.5,
+                                                              0.9)]
+    _, *times = bake_phase(
+        torch, "multipass", prog, frames[0], frames,
+        lambda a, c: bool(torch.equal(a["fb"].color, c["fb"].color)
+                          and torch.equal(a["fb"].depth, c["fb"].depth)))
+    return times
+
+
+def lod_tail_phase(torch, gs, fog):
+    """The fog flythrough with the ``lod_tail`` slab proxy: the PSNR gate's
+    samples against exact, printed beside the same gate without the
+    tail (neither gated here)."""
+    tail = BenchFrames(gs, fog.cloud, fog.knobs,
+                       dict(fog.kw_meas, lod_tail=True), fog.kw_exact,
+                       fog.camera)
+    base = gate(torch, "fog", fog)[0]
+    with_tail = gate(torch, "fog lod_tail", tail)[0]
+    b = tail.initial_budget()
+    ms = time_ms(torch, lambda: tail.frame(0.5, b), 10)
+    ms_no = time_ms(torch, lambda: fog.frame(0.5, b), 10)
+    log(f"fog lod_tail: min PSNR vs exact {min(with_tail):.2f} dB over "
+        f"{GATE_SAMPLES} sampled frames [" + " ".join(
+            f"{p:.2f}" for p in with_tail) + f"]; without the tail "
+        f"{min(base):.2f} dB [" + " ".join(f"{p:.2f}" for p in base)
+        + f"]; frame at t=0.5 {ms:.3f} ms with the tail, {ms_no:.3f} ms "
+        f"without (CUDA events, eager)")
+    require(all(np.isfinite(with_tail)), "fog lod_tail: non-finite PSNR")
+    return min(with_tail), min(base)
+
+
 def run() -> int:
+    t_start = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -1454,6 +1795,8 @@ def run() -> int:
     so = cuda.build()
     cuda.lib()
     log(f"kernel build + load: {time.perf_counter() - t0:.2f} s ({so.name})")
+    native_build()
+    serve_without_pil()
 
     # ---- fog: K1, K2 -------------------------------------------------------
     dev = torch.device("cuda")
@@ -1490,6 +1833,8 @@ def run() -> int:
     anims = [animation_phase(torch, cuda, "fog", fog.step,
                              carry=fog.initial_budget(),
                              finite=img_finite(torch))]
+    baked_fog_phase(torch, fog)
+    lod_tail_phase(torch, gs, fog)
     del fog
     for key, name in (("k1_project", "K1"), ("k2_composite", "K2")):
         require(fog_launches[key] > 0, f"{name} was not launched on the fog "
@@ -1609,6 +1954,8 @@ def run() -> int:
                                  rs.scene("grid10k", dev).frame,
                                  finite=fb_finite(torch)))
     swapchain_phase(torch, cuda)
+    textured_planes_phase(torch, dev)
+    baked_multipass_phase(torch, dev)
     torch.cuda.empty_cache()
 
     # ---- particle splat: K10 on the sample's pass and a wide check;
@@ -1671,6 +2018,7 @@ def run() -> int:
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
+    log(f"chip_smoke ran {time.perf_counter() - t_start:.1f} s")
     log(f"card: {card}")
     print(json.dumps({"kernels": [{k: d[k] for k in keys}
                                   for d in (k1, k2, k3, k4, k5, k6, k7, k8,

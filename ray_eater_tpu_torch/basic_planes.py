@@ -3,8 +3,10 @@
 Two textured quads (8 vertices, 12 indices) with per-vertex colours and
 uv, depth-tested, the model spinning about Y at 45 degrees a second, the
 camera at (2, 2, 2) looking at the origin (basic_planes.zig:245-350;
-``samples/basic_planes.py``), textured with the samples' procedural
-checkerboard (``raster_scenes.scene("basic_planes")``). By default the
+``samples/basic_planes.py``). The texture is searched as the JAX sample
+searches it (:func:`load_texture`), less the sample's path outside the
+checkout: the image file named by the ``RAYEATER_TEXTURE`` environment
+variable, then the samples' procedural checkerboard. By default the
 ``--frames`` frames at t = i/60 run as one animation through
 ``render_animation`` (on a CUDA device: one captured frame step, replayed
 a frame at a time); ``--host-loop`` renders each frame eagerly and
@@ -23,8 +25,28 @@ import os
 import sys
 import tempfile
 
+from .core.resources import texture_from_array, texture_from_file
 from .io.image import save_png
-from .raster_scenes import EXTENTS, device_loop, host_loop, scene
+from .raster_scenes import EXTENTS, checker_rgba, device_loop, host_loop, scene
+from .utils.logging import scoped
+
+_log = scoped("application")
+
+
+def texture_candidates() -> tuple[str, ...]:
+    """The texture files searched, in order: ``$RAYEATER_TEXTURE``. Nothing
+    outside the checkout is read unless the caller names it."""
+    return (os.environ.get("RAYEATER_TEXTURE", ""),)
+
+
+def load_texture(device="cuda"):
+    """The first existing file of :func:`texture_candidates` as a texture
+    (``texture_from_file``), else the procedural checkerboard."""
+    for path in texture_candidates():
+        if path and os.path.exists(path):
+            _log.info("texture: %s", path)
+            return texture_from_file(path, device=device)
+    return texture_from_array(checker_rgba(), device=device)
 
 
 def parse_args(argv=None):
@@ -50,7 +72,8 @@ def run(args, on_image=None) -> dict:
     record (``path`` names it; ``on_image`` gets each frame the host loop
     presents) with "frames" (the count), "last" (the last u8 frame, a
     numpy array) and "png"."""
-    sc = scene("basic_planes", args.device, args.width, args.height)
+    sc = scene("basic_planes", args.device, args.width, args.height,
+               texture=load_texture(args.device))
     if args.host_loop:
         r = host_loop(sc.frame, args.frames, args.device, sc.width,
                       sc.height, present=not args.no_present,

@@ -15,7 +15,7 @@ import enum
 import numpy as np
 import torch
 
-from ..io.image import linear_to_srgb, srgb_to_linear
+from ..io.image import linear_to_srgb, load_image, srgb_to_linear
 from ..utils import on_device
 from ..utils import pad_to as _pad
 
@@ -270,3 +270,13 @@ def texture_from_array(rgba_u8: np.ndarray, sampler: Sampler | None = None,
                    packed_srgb=bool(srgb), mip_table=mip_table,
                    mip_dims=mip_dims, win_table=win_table,
                    win_dims=win_dims)
+
+
+def texture_from_file(path: str, sampler: Sampler | None = None,
+                      srgb: bool = True, pack: bool = True,
+                      device="cuda") -> Texture:
+    """``TexImage.fromFile`` (texture.zig:52-74): decode the image file
+    with :func:`load_image` and upload it as :func:`texture_from_array`
+    does."""
+    return texture_from_array(load_image(path), sampler, srgb=srgb,
+                              pack=pack, device=device)

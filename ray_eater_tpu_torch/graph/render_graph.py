@@ -17,12 +17,20 @@ The frame program runs its passes eagerly. The JAX package's ``jit``
 compiles the frame into one XLA program; here the counterpart is a CUDA
 graph, which :func:`ray_eater_tpu_torch.core.animation.render_animation`
 captures around a frame step, so ``bake(jit=...)`` changes nothing.
+:meth:`FrameProgram.save_baked` writes the frame traced by
+``torch.export`` (the kernels as their ``rayeater::*`` custom ops) and
+:func:`load_baked` reads it back, the counterpart of the JAX package's
+serialised StableHLO.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import importlib
+import json
 from typing import Callable, Sequence
+
+import torch
 
 from ..utils.logging import scoped
 
@@ -195,20 +203,109 @@ class FrameProgram:
         return [p.name for p in self.schedule]
 
     def save_baked(self, path: str, **example_env) -> None:
-        """Not ported (ROADMAP queue 1, item 4: ``save_baked``/
-        ``load_baked``): the JAX package serialises the frame as StableHLO
-        through ``jax.export``; the port's kernels are ctypes calls that
-        ``torch.export`` cannot trace."""
-        raise NotImplementedError(
-            "FrameProgram.save_baked is not ported (ROADMAP queue 1, item "
-            "4: save_baked/load_baked): torch.export cannot trace the "
-            "port's ctypes kernel calls")
+        """Serialise the frame program: traced by ``torch.export`` on the
+        example external slots (tensors of the shapes, dtypes and device
+        the frame will be called with) and written by
+        ``torch.export.save``, the counterpart of the JAX package's
+        StableHLO artifact. The kernels trace as their custom ops
+        (``rayeater::*``); tensors the passes close over (a splat cloud, a
+        texture) are stored in the file. :func:`load_baked` reads it back
+        without the passes' Python."""
+        missing = [e for e in self.externals if e not in example_env]
+        if missing:
+            raise GraphValidationError(f"save_baked missing {missing}")
+        env = {k: example_env[k] for k in self.externals}
+        bad = [k for k, v in env.items() if not isinstance(v, torch.Tensor)]
+        if bad:
+            raise GraphValidationError(
+                f"save_baked: external slots {bad} must be tensors")
+        specs: list = []
+        exported = torch.export.export(_frame_module(self, specs), (env,),
+                                       strict=False)
+        spec = {"name": self.name, "externals": self.externals,
+                "out": specs[-1]}
+        torch.export.save(exported, path,
+                          extra_files={_SPEC_FILE: json.dumps(spec)})
+        _log.info("baked frame %s -> %s", self.name, path)
+
+
+#: the archive entry that holds a baked frame's slots and output structure
+_SPEC_FILE = "rayeater_frame.json"
+
+
+def _flatten(x, leaves: list):
+    """The structure of a frame output with its tensors appended to
+    ``leaves``: tensors, dicts, lists, tuples, dataclasses (a
+    ``Framebuffer``) and plain values (kept in the structure)."""
+    if isinstance(x, torch.Tensor):
+        leaves.append(x)
+        return ["tensor"]
+    if isinstance(x, dict):
+        return ["dict", [[k, _flatten(v, leaves)] for k, v in x.items()]]
+    if isinstance(x, (list, tuple)):
+        return ["list" if isinstance(x, list) else "tuple",
+                [_flatten(v, leaves) for v in x]]
+    if dataclasses.is_dataclass(x) and not isinstance(x, type):
+        cls = type(x)
+        return ["dataclass", f"{cls.__module__}:{cls.__qualname__}",
+                [[f.name, _flatten(getattr(x, f.name), leaves)]
+                 for f in dataclasses.fields(x)]]
+    if x is None or isinstance(x, (bool, int, float, str)):
+        return ["value", x]
+    raise GraphValidationError(f"cannot bake a frame output of type "
+                               f"{type(x).__name__}")
+
+
+def _unflatten(spec, leaves):
+    kind = spec[0]
+    if kind == "tensor":
+        return next(leaves)
+    if kind == "dict":
+        return {k: _unflatten(v, leaves) for k, v in spec[1]}
+    if kind in ("list", "tuple"):
+        items = [_unflatten(v, leaves) for v in spec[1]]
+        return items if kind == "list" else tuple(items)
+    if kind == "dataclass":
+        module, qualname = spec[1].split(":")
+        cls = importlib.import_module(module)
+        for part in qualname.split("."):
+            cls = getattr(cls, part)
+        return cls(**{k: _unflatten(v, leaves) for k, v in spec[2]})
+    return spec[1]
+
+
+def _frame_module(prog: FrameProgram, specs: list) -> torch.nn.Module:
+    """``prog`` as a module for ``torch.export``: ``forward`` takes the
+    external slots as one dict and returns the output slots' tensors
+    flattened, and appends their structure (:func:`_flatten`) to
+    ``specs``. ``specs`` is held by the closure, not by the module, since
+    export restores a module's attributes after tracing."""
+    class Frame(torch.nn.Module):
+        def forward(self, env: dict):
+            leaves: list = []
+            specs.append(_flatten(prog(**env), leaves))
+            return tuple(leaves)
+    return Frame()
 
 
 def load_baked(path: str):
-    """Not ported (ROADMAP queue 1, item 4); see
-    :meth:`FrameProgram.save_baked`."""
-    raise NotImplementedError(
-        "load_baked is not ported (ROADMAP queue 1, item 4: save_baked/"
-        "load_baked): torch.export cannot trace the port's ctypes kernel "
-        "calls")
+    """Load a frame program written by :meth:`FrameProgram.save_baked`.
+    Returns a callable ``loaded(**env) -> dict`` taking the external slots
+    as the frame program does, on the device it was traced on, and
+    raising :class:`GraphValidationError` for missing slots."""
+    from ..ops import gs, raster, sampling, splat  # noqa: F401 (the ops)
+    extra = {_SPEC_FILE: ""}
+    exported = torch.export.load(path, extra_files=extra)
+    spec = json.loads(extra[_SPEC_FILE])
+    run = exported.module()
+
+    def loaded(**env) -> dict:
+        missing = [e for e in spec["externals"] if e not in env]
+        if missing:
+            raise GraphValidationError(
+                f"baked frame {spec['name']!r} missing external slots "
+                f"{missing}")
+        out = run({k: env[k] for k in spec["externals"]})
+        return _unflatten(spec["out"], iter(out))
+
+    return loaded

@@ -287,7 +287,16 @@ def save_ply(path: str, cloud: GaussianCloud) -> None:
 
 def _read_ply_vertices(path: str):
     """PLY vertex reader, float32 properties only (what 3DGS exports use):
-    (property names, (N, P) float32). Elements after the vertices (e.g.
+    (property names, (N, P) float32), through the native tier's
+    ``read_ply`` when it is built, else :func:`_read_ply_numpy`."""
+    from ..native import loader as native
+    if native.available():
+        return native.read_ply(path)
+    return _read_ply_numpy(path)
+
+
+def _read_ply_numpy(path: str):
+    """The numpy PLY vertex reader. Elements after the vertices (e.g.
     ``element face 0``) are ignored."""
     with open(path, "rb") as f:
         props: list[str] = []

@@ -1,4 +1,5 @@
-"""Build and bind the port's CUDA kernels (``csrc/*.cu``).
+"""Build and bind the port's CUDA kernels (``csrc/*.cu``), and register
+each kernel as a ``torch.library`` custom op (:func:`kernel_op`).
 
 The sources compile with ``nvcc`` (one process per source, in parallel)
 and link into one shared library with a plain C interface, bound with
@@ -7,6 +8,14 @@ and link into one shared library with a plain C interface, bound with
 the hash of the sources and flags, so an edited source never loads a stale
 library. Nothing here runs at import time: the CPU tests import every
 module on machines with no ``nvcc``.
+
+Each of the ten kernels is an op ``rayeater::<name>``: its CUDA
+implementation checks the arguments, launches the kernel on the current
+stream and counts the launch; its CPU implementation is the kernel's plain
+PyTorch version; its fake implementation gives the outputs' shapes and
+dtypes from the inputs' shapes alone, so ``torch.export`` traces a frame
+through the op without running it (``FrameProgram.save_baked``). Every op
+allocates and returns its outputs and writes no input.
 
 Flags: ``sm_90a`` (Hopper). No ``--use_fast_math``: the kernels keep IEEE
 ``sqrtf``/``logf``/``expf`` and division so their integer radii match the
@@ -23,6 +32,8 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
+
+import torch
 
 _PKG = Path(__file__).resolve().parent.parent
 _CSRC = _PKG / "csrc"
@@ -160,3 +171,53 @@ def check(err: int, name: str) -> None:
     """Raise if a launch returned a nonzero ``cudaGetLastError()``."""
     if err != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with error {err}")
+
+
+def fresh(out, inputs):
+    """``out`` (a tensor or a tuple of them) with each tensor that shares
+    storage with one of ``inputs`` or with an earlier output cloned: a
+    custom op's outputs alias nothing."""
+    seen = {t.untyped_storage().data_ptr() for t in inputs
+            if isinstance(t, torch.Tensor)}
+
+    def own(t):
+        ptr = t.untyped_storage().data_ptr()
+        if ptr in seen:
+            t = t.clone()
+            ptr = t.untyped_storage().data_ptr()
+        seen.add(ptr)
+        return t
+    if isinstance(out, torch.Tensor):
+        return own(out)
+    return tuple(own(t) for t in out)
+
+
+def kernel_op(name: str, plain, fake):
+    """Register the decorated launch function (annotated with the op's
+    argument and return types) as the custom op ``rayeater::<name>``: its
+    implementation for CUDA tensors (and, raising, for any device but the
+    CPU), ``plain`` for CPU tensors, ``fake`` for tracing. Returns the op,
+    called like the function."""
+    def register(launch):
+        op = torch.library.custom_op(f"rayeater::{name}", launch,
+                                     mutates_args=())
+        op.register_kernel("cpu", lambda *args: fresh(plain(*args), args))
+        op.register_fake(fake)
+        return op
+    return register
+
+
+def cuda_device(t: torch.Tensor, name: str) -> torch.device:
+    """``t``'s device, which must be a CUDA device (an op's CUDA path)."""
+    if t.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {t.device}")
+    return t.device
+
+
+def op_device(t: torch.Tensor, name: str) -> torch.device:
+    """``t``'s device, which must be the CPU or a CUDA device: a wrapper
+    refuses any other before it calls its op (whose fake implementation
+    would answer a meta tensor)."""
+    if t.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: unsupported device {t.device}")
+    return t.device

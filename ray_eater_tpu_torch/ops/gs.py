@@ -31,12 +31,16 @@ transmittance at the entry of every chunk it runs) forward and kernel K5
 (``csrc/gs_composite_bwd.cu``, one front-to-back walk per tile) backward.
 
 The float32 arithmetic of every step that feeds an integer (radii, tile
-spans, depth keys, pool grants) keeps the JAX package's operands and order,
-so the two packages bin the same pairs. Each kernel has a plain PyTorch
-version here; its wrapper runs that version only for CPU tensors.
+spans, depth keys, pool grants, the tail proxy's quantised aux) keeps the
+JAX package's operands and order, so the two packages bin the same pairs.
+Each kernel has a plain PyTorch version here and is a ``torch.library``
+custom op (``rayeater::k1_project`` .. ``k5_composite_bwd``): its wrapper
+runs the plain version only for CPU tensors.
 
-Not ported yet (``render_gaussians`` raises ``NotImplementedError``): the
-``lod_tail`` slab proxy and view-dependent SH colours.
+Everything ``render_gaussians`` takes is ported: exact and LOD modes, the
+side channels, the decimated tail, the ``lod_tail`` slab proxy
+(:func:`_pack_tail_aux`, :func:`_tail_sums`) and view-dependent SH
+colours.
 """
 
 from __future__ import annotations
@@ -271,14 +275,15 @@ def _project_plain(means, scales, quats, opacities, scal) -> torch.Tensor:
                                      *cov, opacities, scal))
 
 
-def _project_k1(means, scales, quats, opacities, scal) -> torch.Tensor:
-    """K1 wrapper: (9, N) f32 projection planes. CPU tensors take the plain
-    version; CUDA tensors launch the kernel (or raise)."""
-    dev = means.device
-    if dev.type == "cpu":
-        return _project_plain(means, scales, quats, opacities, scal)
-    if dev.type != "cuda":
-        raise ValueError(f"K1 projection: unsupported device {dev}")
+def _project_fake(means, scales, quats, opacities, scal):
+    return means.new_empty((9, means.shape[0]))
+
+
+@_cuda.kernel_op("k1_project", _project_plain, _project_fake)
+def _k1_op(means: torch.Tensor, scales: torch.Tensor, quats: torch.Tensor,
+           opacities: torch.Tensor, scal: torch.Tensor) -> torch.Tensor:
+    """K1's launch: (9, N) f32 projection planes."""
+    dev = _cuda.cuda_device(means, "K1 projection")
     n = means.shape[0]
     _cuda.check_arg(means, "means", _F32, (n, 3), dev)
     _cuda.check_arg(scales, "scales", _F32, (n, 3), dev)
@@ -294,6 +299,14 @@ def _project_k1(means, scales, quats, opacities, scal) -> torch.Tensor:
     _cuda.check(err, "K1 projection")
     _cuda.launches["k1_project"] += 1
     return out
+
+
+def _project_k1(means, scales, quats, opacities, scal) -> torch.Tensor:
+    """K1 wrapper (the op ``rayeater::k1_project``): (9, N) f32
+    projection planes. CPU tensors take the plain version; CUDA tensors
+    launch the kernel (or raise)."""
+    _cuda.op_device(means, "K1 projection")
+    return _k1_op(means, scales, quats, opacities, scal)
 
 
 def _splats(planes, colors, opacities) -> ProjectedSplats:
@@ -537,6 +550,66 @@ def _aligned_pack_idx(startc, kept, cap_steps: int, sorted_splat):
     return sorted_splat[srow], blk_off[:-1] * CHUNK
 
 
+# ---------------------------------------------------------------------------
+# The LOD tail proxy: a per-splat quantised aux rides the binning sort, and
+# the pairs the LOD drops are summed per tile into a homogeneous slab that
+# finalize_planes composites behind the kept lists (render_gaussians'
+# ``lod_tail``).
+# ---------------------------------------------------------------------------
+
+#: aux quantisation: -log1p(-alpha_eff) in 15 bits over [0, _TAIL_LA_MAX]
+#: (sqrt domain), RGB as 5:6:5 in the low 16 bits
+_TAIL_LA_MAX = 4.0
+_TAIL_BS = 512   # block of the tail sums
+
+
+def _pack_tail_aux(alpha_full, colors, n_pairs, pix: int = TILE_H * TILE_W):
+    """Per-splat int32 aux: ``alpha_full`` = op·2π/sqrt(det(conic)) (the
+    Gaussian's alpha integral in px²) split evenly among its ``n_pairs``
+    emitted tiles and averaged over the tile area ``pix``, as
+    la = -log1p(-alpha_eff) quantised to 15 bits in the sqrt domain, above
+    the colour as 5:6:5. The JAX ``_pack_tail_aux``, operand for
+    operand."""
+    a_eff = torch.clamp(alpha_full / (pix * torch.clamp(n_pairs, min=1)
+                                      .to(_F32)), 0.0, 0.98)
+    la = -torch.log1p(-a_eff)
+    q = torch.clamp((torch.sqrt(la / _TAIL_LA_MAX) * 32767.0 + 0.5)
+                    .to(_I32), 0, 32767)
+    c = torch.clamp(colors, 0.0, 1.0)
+    r5 = (c[:, 0] * 31.0 + 0.5).to(_I32)
+    g6 = (c[:, 1] * 63.0 + 0.5).to(_I32)
+    b5 = (c[:, 2] * 31.0 + 0.5).to(_I32)
+    return (q << 16) | (r5 << 11) | (g6 << 5) | b5
+
+
+def _tail_sums(aux_sorted, lo, hi):
+    """Homogeneous-slab sums over the pair ranges [lo, hi) of the sorted
+    aux: (4, ntiles) = S_la, S_la·r, S_la·g, S_la·b. As the JAX
+    ``_tail_sums``: per-block partial sums of :data:`_TAIL_BS` pairs, an
+    exclusive cumsum of the block sums, and the masked remainder of the
+    block holding each boundary."""
+    sq = ((aux_sorted >> 16) & 0x7fff).to(_F32) * (1.0 / 32767.0)
+    la = sq * sq * _TAIL_LA_MAX
+    cr = ((aux_sorted >> 11) & 31).to(_F32) * (1.0 / 31.0)
+    cg = ((aux_sorted >> 5) & 63).to(_F32) * (1.0 / 63.0)
+    cb = (aux_sorted & 31).to(_F32) * (1.0 / 31.0)
+    m = aux_sorted.shape[0]
+    bs = _TAIL_BS
+    stack = torch.stack([la, la * cr, la * cg, la * cb])     # (4, m)
+    stack = F.pad(stack, (0, _pad_to(m, bs) - m))
+    blocks = stack.reshape(4, -1, bs)
+    cumblk = F.pad(torch.cumsum(blocks.sum(-1), 1), (1, 0))   # exclusive
+    lane = torch.arange(bs, device=aux_sorted.device)
+
+    def s_excl(p):                                            # (4, nt)
+        p = p.long()
+        rows = blocks[:, p // bs]                             # (4, nt, bs)
+        mask = lane[None] < (p % bs)[:, None]
+        return cumblk[:, p // bs] + (rows * mask[None]).sum(-1)
+
+    return s_excl(hi) - s_excl(lo)
+
+
 class Binned(NamedTuple):
     pack_idx: torch.Tensor    # (R,) splat index of each packed row
     row_begin: torch.Tensor   # (ntiles,) i32 first packed row of each tile
@@ -551,6 +624,9 @@ class Binned(NamedTuple):
     row_begin_tl: torch.Tensor | None = None
     row_end_tl: torch.Tensor | None = None
     kept_tl: torch.Tensor | None = None
+    # the lod_tail slab (None without ``tail``): (tail_la (ntiles,),
+    # tail_rgb (ntiles, 3)) over each tile's dropped pairs
+    tail_slab: tuple | None = None
 
 
 def _bin_splats(mx, my, rad, valid, depth, ntx: int, nty: int,
@@ -560,7 +636,7 @@ def _bin_splats(mx, my, rad, valid, depth, ntx: int, nty: int,
                 big_cap: int | None = None, mid_cap: int | None = None,
                 mid_lo_cap: int | None = None,
                 corner_cap: int | None = None,
-                tail_decim: int | None = None) -> Binned:
+                tail_decim: int | None = None, tail=None) -> Binned:
     """Per-tile front-to-back pair lists from ONE sort of the combined
     ``tile << db | qdepth`` keys.
 
@@ -588,6 +664,11 @@ def _bin_splats(mx, my, rad, valid, depth, ntx: int, nty: int,
       pairs per tile grants each tile the next pairs of its sorted list
       beyond the head grant, granted and snapped the same way, in its own
       aligned pack. ``overflow`` then counts the pairs behind the tail.
+    * slab proxy (``tail=(alpha_full (N,), colors (N, 3))``): each key
+      carries its splat's :func:`_pack_tail_aux` (split among the splat's
+      emitted tiles of its channel) through the sort, and each tile's
+      pairs past its head grant, [start + kept, end), are summed by
+      :func:`_tail_sums` into ``tail_slab``.
     """
     n = mx.shape[0]
     dev = mx.device
@@ -620,6 +701,13 @@ def _bin_splats(mx, my, rad, valid, depth, ntx: int, nty: int,
         keys = _emit_fan(mx, my, rx, ry, r, small, qd, KX, ky, ntx, nty,
                          db, tile_w)
     nl1 = len(keys)
+    sentinel = ntiles << db
+    pix = TILE_H * tile_w
+    auxs = []
+    if tail is not None:
+        n_pairs = sum((k != sentinel).to(_I32) for k in keys)
+        auxs.append(_pack_tail_aux(tail[0], tail[1], n_pairs, pix)
+                    .repeat(nl1))
     if big_cap is not None:
         over1 = valid & ~small
         if mid_cap is not None:
@@ -653,6 +741,10 @@ def _bin_splats(mx, my, rad, valid, depth, ntx: int, nty: int,
                               ch_ky, ntx, nty, db, tile_w)
             keys += bkeys
             ids.append(bidx.repeat(len(bkeys)))
+            if tail is not None:
+                np_big = sum((k != sentinel).to(_I32) for k in bkeys)
+                auxs.append(_pack_tail_aux(tail[0][bidx], tail[1][bidx],
+                                           np_big, pix).repeat(len(bkeys)))
     key_flat = torch.cat(keys)
     m = key_flat.shape[0]
     sorted_key, perm = torch.sort(key_flat, stable=True)
@@ -662,7 +754,7 @@ def _bin_splats(mx, my, rad, valid, depth, ntx: int, nty: int,
     start = torch.searchsorted(sorted_key, tvec << db, out_int32=True)
     startc = start[:-1]
     count = start[1:] - startc
-    tail = {}
+    tail_tl = {}
     if max_per_tile is not None:
         qmask = (1 << db) - 1
         dry_need = None
@@ -707,9 +799,9 @@ def _bin_splats(mx, my, rad, valid, depth, ntx: int, nty: int,
             pack_tl, begin_tl = _aligned_pack_idx(
                 startc + kept, kept_tl, cap_steps_tl, sorted_splat)
             begin_tl = begin_tl.to(_I32).contiguous()
-            tail = dict(pack_idx_tl=pack_tl, row_begin_tl=begin_tl,
-                        row_end_tl=(begin_tl + kept_tl).contiguous(),
-                        kept_tl=kept_tl)
+            tail_tl = dict(pack_idx_tl=pack_tl, row_begin_tl=begin_tl,
+                           row_end_tl=(begin_tl + kept_tl).contiguous(),
+                           kept_tl=kept_tl)
     else:
         blk = CHUNK * nseg
         mpad = _pad_to(m, blk)
@@ -719,10 +811,16 @@ def _bin_splats(mx, my, rad, valid, depth, ntx: int, nty: int,
                            min=0).to(_I32)
         pack_idx = sorted_splat[:min(cap_pairs, m)]
         row_begin = startc
+    if tail is not None:
+        # slab sums over each tile's dropped range [startc+kept, end): LOD
+        # drops and positional cap drops alike
+        sums = _tail_sums(torch.cat(auxs)[perm], startc + kept, start[1:])
+        tail_rgb = (sums[1:4] / torch.clamp(sums[0:1], min=1e-9)).T
+        tail_tl["tail_slab"] = (sums[0], tail_rgb)
     return Binned(pack_idx=pack_idx, row_begin=row_begin.contiguous(),
                   row_end=(row_begin + kept).contiguous(),
                   visited=kept > 0, overflow=overflow, kept=kept,
-                  count=count, overflow_big=overflow_big, **tail)
+                  count=count, overflow_big=overflow_big, **tail_tl)
 
 
 def _pack_records(records: torch.Tensor, pack_idx: torch.Tensor):
@@ -909,15 +1007,21 @@ def _composite_args(name, records, row_begin, row_end, ntiles, tile_w, dev):
     _cuda.check_arg(row_end, "row_end", _I32, (ntiles,), dev)
 
 
-def _composite_call(records, row_begin, row_end, ntx: int, nty: int,
-                    tile_w: int = TILE_W):
-    """K2 wrapper: (planes (4, ntiles, 32*tile_w) f32, exec (ntiles,) i32),
-    initialised for every tile. CPU tensors take the plain version; CUDA
-    tensors launch the kernel (or raise)."""
-    dev = records.device
-    if dev.type == "cpu":
-        return _composite_plain(records, row_begin, row_end, ntx, nty,
-                                tile_w)
+def _composite_fake(records, row_begin, row_end, ntx, nty, tile_w=TILE_W,
+                    decim=1):
+    ntiles = ntx * nty
+    pix = (TILE_H // decim) * (tile_w // decim)
+    return (records.new_empty((4, ntiles, pix)),
+            records.new_empty((ntiles,), dtype=_I32))
+
+
+@_cuda.kernel_op("k2_composite", _composite_plain, _composite_fake)
+def _k2_op(records: torch.Tensor, row_begin: torch.Tensor,
+           row_end: torch.Tensor, ntx: int, nty: int,
+           tile_w: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """K2's launch: (planes (4, ntiles, 32*tile_w) f32, exec (ntiles,)
+    i32)."""
+    dev = records.device          # _composite_args refuses non-CUDA
     ntiles = ntx * nty
     _composite_args("K2 composite", records, row_begin, row_end, ntiles,
                     tile_w, dev)
@@ -934,18 +1038,30 @@ def _composite_call(records, row_begin, row_end, ntx: int, nty: int,
     return planes, exec_
 
 
-def _composite_tail_call(records, row_begin, row_end, t_entry, ntx: int,
-                         nty: int, tile_w: int = TILE_W, decim: int = 2):
-    """K3 wrapper: (planes (4, ntiles, pixd) f32 = r, g, b, absolute T;
-    exec (ntiles,) i32), initialised for every tile (a tile with no rows,
-    or skipped at entry, keeps rgb 0 and its entry T). CPU tensors take
-    the plain version; CUDA tensors launch the kernel's two passes (or
-    raise), which need row ranges that ascend with the tile index and do
-    not overlap, as every packed layout here does."""
+def _composite_call(records, row_begin, row_end, ntx: int, nty: int,
+                    tile_w: int = TILE_W):
+    """K2 wrapper (the op ``rayeater::k2_composite``): (planes (4, ntiles,
+    32*tile_w) f32, exec (ntiles,) i32), initialised for every tile. CPU
+    tensors take the plain version; CUDA tensors launch the kernel (or
+    raise)."""
+    _cuda.op_device(records, "K2 composite")
+    return _k2_op(records, row_begin, row_end, ntx, nty, tile_w)
+
+
+def _composite_tail_fake(records, row_begin, row_end, t_entry, ntx, nty,
+                         tile_w, decim):
+    return _composite_fake(records, row_begin, row_end, ntx, nty, tile_w,
+                           decim)
+
+
+@_cuda.kernel_op("k3_composite_tail", _composite_tail_plain,
+                 _composite_tail_fake)
+def _k3_op(records: torch.Tensor, row_begin: torch.Tensor,
+           row_end: torch.Tensor, t_entry: torch.Tensor, ntx: int, nty: int,
+           tile_w: int, decim: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """K3's launch (two passes): (planes (4, ntiles, pixd) f32, exec
+    (ntiles,) i32)."""
     dev = records.device
-    if dev.type == "cpu":
-        return _composite_tail_plain(records, row_begin, row_end, t_entry,
-                                     ntx, nty, tile_w, decim)
     ntiles = ntx * nty
     _composite_args("K3 tail composite", records, row_begin, row_end,
                     ntiles, tile_w, dev)
@@ -968,6 +1084,20 @@ def _composite_tail_call(records, row_begin, row_end, t_entry, ntx: int,
     _cuda.check(err, "K3 tail composite")
     _cuda.launches["k3_composite_tail"] += 1
     return planes, exec_
+
+
+def _composite_tail_call(records, row_begin, row_end, t_entry, ntx: int,
+                         nty: int, tile_w: int = TILE_W, decim: int = 2):
+    """K3 wrapper (the op ``rayeater::k3_composite_tail``): (planes (4,
+    ntiles, pixd) f32 = r, g, b, absolute T; exec (ntiles,) i32),
+    initialised for every tile (a tile with no rows, or skipped at entry,
+    keeps rgb 0 and its entry T). CPU tensors take the plain version; CUDA
+    tensors launch the kernel's two passes (or raise), which need row
+    ranges that ascend with the tile index and do not overlap, as every
+    packed layout here does."""
+    _cuda.op_device(records, "K3 tail composite")
+    return _k3_op(records, row_begin, row_end, t_entry, ntx, nty, tile_w,
+                  decim)
 
 
 # ---------------------------------------------------------------------------
@@ -1000,16 +1130,23 @@ def _composite_ckpt_plain(records, row_begin, row_end, ntx: int, nty: int,
     return planes, exec_, ckpt, ck_off
 
 
-def _composite_call_ckpt(records, row_begin, row_end, ntx: int, nty: int,
-                         tile_w: int = TILE_W):
-    """K4 wrapper: (planes (4, ntiles, 32*tile_w), exec (ntiles,) i32, ckpt
-    (nslots, 32*tile_w), ck_off (ntiles,) i32); only the checkpoint rows of
-    chunks that ran are defined. CPU tensors take the plain version; CUDA
-    tensors launch the kernel (or raise)."""
+def _composite_ckpt_fake(records, row_begin, row_end, ntx, nty,
+                         tile_w=TILE_W):
+    ntiles = ntx * nty
+    nslots = -(-records.shape[0] // CHUNK) + ntiles
+    planes, exec_ = _composite_fake(records, row_begin, row_end, ntx, nty,
+                                    tile_w)
+    return (planes, exec_, records.new_empty((nslots, TILE_H * tile_w)),
+            records.new_empty((ntiles,), dtype=_I32))
+
+
+@_cuda.kernel_op("k4_composite_ckpt", _composite_ckpt_plain,
+                 _composite_ckpt_fake)
+def _k4_op(records: torch.Tensor, row_begin: torch.Tensor,
+           row_end: torch.Tensor, ntx: int, nty: int, tile_w: int
+           ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K4's launch: (planes, exec, ckpt (nslots, 32*tile_w), ck_off)."""
     dev = records.device
-    if dev.type == "cpu":
-        return _composite_ckpt_plain(records, row_begin, row_end, ntx, nty,
-                                     tile_w)
     ntiles = ntx * nty
     _composite_args("K4 composite ckpt", records, row_begin, row_end, ntiles,
                     tile_w, dev)
@@ -1027,6 +1164,17 @@ def _composite_call_ckpt(records, row_begin, row_end, ntx: int, nty: int,
     _cuda.check(err, "K4 composite ckpt")
     _cuda.launches["k4_composite_ckpt"] += 1
     return planes, exec_, ckpt, ck_off
+
+
+def _composite_call_ckpt(records, row_begin, row_end, ntx: int, nty: int,
+                         tile_w: int = TILE_W):
+    """K4 wrapper (the op ``rayeater::k4_composite_ckpt``): (planes (4,
+    ntiles, 32*tile_w), exec (ntiles,) i32, ckpt (nslots, 32*tile_w),
+    ck_off (ntiles,) i32); only the checkpoint rows of chunks that ran are
+    defined. CPU tensors take the plain version; CUDA tensors launch the
+    kernel (or raise)."""
+    _cuda.op_device(records, "K4 composite ckpt")
+    return _k4_op(records, row_begin, row_end, ntx, nty, tile_w)
 
 
 def _executed_chunks(begin, first, exec_):
@@ -1115,19 +1263,18 @@ def _composite_bwd_plain(records, row_begin, row_end, exec_, ck_off, ckpt,
     return grad
 
 
-def _composite_bwd_call(records, row_begin, row_end, exec_, ck_off, ckpt,
-                        planes, dplanes, ntx: int, nty: int,
-                        tile_w: int = TILE_W):
-    """K5 wrapper: dL/d(packed records) (R, 12) f32 from K4's outputs
-    (its planes among them) and the (4, ntiles, 32*tile_w) cotangent
-    ``dplanes``; zero-filled, the kernel adds into every row of every chunk
-    the forward ran. CPU tensors take the plain version; CUDA tensors
-    launch the kernel (or raise)."""
+def _composite_bwd_fake(records, *args):
+    return records.new_empty((records.shape[0], _ROWS))
+
+
+@_cuda.kernel_op("k5_composite_bwd", _composite_bwd_plain,
+                 _composite_bwd_fake)
+def _k5_op(records: torch.Tensor, row_begin: torch.Tensor,
+           row_end: torch.Tensor, exec_: torch.Tensor, ck_off: torch.Tensor,
+           ckpt: torch.Tensor, planes: torch.Tensor, dplanes: torch.Tensor,
+           ntx: int, nty: int, tile_w: int) -> torch.Tensor:
+    """K5's launch: dL/d(packed records) (R, 12) f32."""
     dev = records.device
-    if dev.type == "cpu":
-        return _composite_bwd_plain(records, row_begin, row_end, exec_,
-                                    ck_off, ckpt, planes, dplanes, ntx, nty,
-                                    tile_w)
     ntiles = ntx * nty
     pix = TILE_H * tile_w
     _composite_args("K5 composite bwd", records, row_begin, row_end, ntiles,
@@ -1150,8 +1297,22 @@ def _composite_bwd_call(records, row_begin, row_end, exec_, ck_off, ckpt,
     return grad
 
 
+def _composite_bwd_call(records, row_begin, row_end, exec_, ck_off, ckpt,
+                        planes, dplanes, ntx: int, nty: int,
+                        tile_w: int = TILE_W):
+    """K5 wrapper (the op ``rayeater::k5_composite_bwd``): dL/d(packed
+    records) (R, 12) f32 from K4's outputs (its planes among them) and the
+    (4, ntiles, 32*tile_w) cotangent ``dplanes``; zero-filled, the kernel
+    adds into every row of every chunk the forward ran. CPU tensors take
+    the plain version; CUDA tensors launch the kernel (or raise)."""
+    _cuda.op_device(records, "K5 composite bwd")
+    return _k5_op(records, row_begin, row_end, exec_, ck_off, ckpt, planes,
+                  dplanes, ntx, nty, tile_w)
+
+
 class _CompositeDiff(torch.autograd.Function):
-    """K4 forward, K5 backward; the row ranges get no gradient."""
+    """K4 forward, K5 backward (through their ops); the row ranges get no
+    gradient."""
 
     @staticmethod
     def forward(ctx, packed, row_begin, row_end, ntx, nty, tile_w):
@@ -1209,9 +1370,16 @@ def _untile_decim(plane, nty: int, ntx: int, tile_w: int, decim: int):
     return t.transpose(-3, -2).reshape(*plane.shape[:-2], nty * th, ntx * tw)
 
 
+def _upsample(grid, size):
+    """Bilinear upsampling of (C, h, w) to (C, *size) with half-pixel
+    centres, as ``jax.image.resize``'s "bilinear" enlarges."""
+    return F.interpolate(grid[None], size=tuple(size), mode="bilinear",
+                         align_corners=False)[0]
+
+
 def finalize_planes(planes, visited, nty: int, ntx: int, background,
                     tile_w: int = TILE_W, tail_decim_planes=None,
-                    decim: int = 2) -> torch.Tensor:
+                    decim: int = 2, tail_slab=None) -> torch.Tensor:
     """Mask never-visited tiles to background (T = 1), untile the planes
     and blend the background through the remaining transmittance →
     (nty*32, ntx*tile_w, 3).
@@ -1220,13 +1388,19 @@ def finalize_planes(planes, visited, nty: int, ntx: int, background,
     entry T (ntiles, pixd), tail-visited (ntiles,) bool): the tail's colour
     and its transmittance ratio (absolute over entry, clipped to [0, 1])
     are upsampled bilinearly (half-pixel centres, as ``jax.image.resize``),
-    the colour added and the head's T multiplied by the ratio. The
-    ``lod_tail`` slab branch of the JAX function is not ported."""
+    the colour added and the head's T multiplied by the ratio.
+
+    ``tail_slab`` = (tail_la (ntiles,) optical thickness, tail_rgb
+    (ntiles, 3) mean colour) of the pairs the LOD dropped: both are
+    upsampled bilinearly across tile centres, the thickness is modulated
+    per pixel by the head's occupancy 1 - T over its upsampled tile mean
+    (clipped to [0, 3]), and the slab is composited behind the head."""
     vis = visited[:, None]
     r, g, b, t = planes
+    t_vis = torch.where(vis, t, 1.0)
     rgb = torch.stack([_untile(torch.where(vis, p, 0.0), nty, ntx, tile_w)
                        for p in (r, g, b)], -1)
-    tt = _untile(torch.where(vis, t, 1.0), nty, ntx, tile_w)
+    tt = _untile(t_vis, nty, ntx, tile_w)
     if tail_decim_planes is not None:
         tail, td, vis_t = tail_decim_planes
         vt = vis_t[:, None]
@@ -1235,11 +1409,19 @@ def finalize_planes(planes, visited, nty: int, ntx: int, background,
                            torch.where(vt, tail[1], 0.0),
                            torch.where(vt, tail[2], 0.0),
                            torch.where(vt, ratio, 1.0)])
-        up = F.interpolate(_untile_decim(low, nty, ntx, tile_w, decim)[None],
-                           size=tuple(tt.shape), mode="bilinear",
-                           align_corners=False)[0]
+        up = _upsample(_untile_decim(low, nty, ntx, tile_w, decim),
+                       tt.shape)
         rgb = rgb + up[:3].permute(1, 2, 0)
         tt = tt * up[3]
+    if tail_slab is not None:
+        tail_la, tail_rgb = tail_slab
+        occ_mean = torch.mean(1.0 - t_vis, -1)                # (ntiles,)
+        up = _upsample(torch.cat([tail_la[None], tail_rgb.T, occ_mean[None]])
+                       .reshape(5, nty, ntx), tt.shape)
+        w = torch.clamp((1.0 - tt) / torch.clamp(up[4], min=1e-3), 0.0, 3.0)
+        a_img = 1.0 - torch.exp(-up[0] * w)
+        rgb = rgb + (tt * a_img)[..., None] * up[1:4].permute(1, 2, 0)
+        tt = tt * (1.0 - a_img)
     bg = (background.to(planes.device, _F32)
           if isinstance(background, torch.Tensor)
           else on_device(background, planes.device))
@@ -1274,8 +1456,11 @@ def _frame_layout(cloud, view, proj, width: int, height: int, *,
                   mid_splat_cap: int | None = None,
                   mid_lo_splat_cap: int | None = None,
                   corner_cap: int | None = None,
-                  lod_tail_decim: int | None = None) -> FrameLayout:
-    """Project (K1), bin and pack one frame: everything before K2."""
+                  lod_tail_decim: int | None = None,
+                  lod_tail: bool = False) -> FrameLayout:
+    """Project (K1), bin and pack one frame: everything before K2. With
+    ``lod_tail`` (LOD mode) the binning also sums the slab proxy
+    (``binned.tail_slab``)."""
     dev = cloud.means.device
     view = _on(view, dev, "view").to(_F32)
     proj = _on(proj, dev, "proj").to(_F32)
@@ -1306,6 +1491,16 @@ def _frame_layout(cloud, view, proj, width: int, height: int, *,
     cap_pairs = _pad_to(cap_pairs, CHUNK)
     if lod_budget is not None:
         lod_budget = _on(lod_budget, dev, "lod_budget")
+    tail_in = None
+    if max_splats_per_tile is not None and lod_tail:
+        # each splat's alpha integral op·2π/sqrt(det(conic)) (det(conic) =
+        # 1/det(cov2d)); culled splats zeroed
+        cn = ps.conic
+        detc = torch.clamp(cn[:, 0] * cn[:, 2] - cn[:, 1] * cn[:, 1],
+                           min=1e-12)
+        a_full = (ps.opacity * torch.isfinite(ps.depth).to(_F32)
+                  * (2.0 * math.pi) * torch.rsqrt(detc))
+        tail_in = (a_full, ps.color)
     binned = _bin_splats(ps.mean2d[:, 0], ps.mean2d[:, 1], ps.radius,
                          torch.isfinite(ps.depth), ps.depth, ntx, nty,
                          cap_pairs, ky=ky, max_per_tile=max_splats_per_tile,
@@ -1314,7 +1509,7 @@ def _frame_layout(cloud, view, proj, width: int, height: int, *,
                          mid_cap=mid_splat_cap, mid_lo_cap=mid_lo_splat_cap,
                          corner_cap=corner_cap,
                          tail_decim=(lod_tail_decim if max_splats_per_tile
-                                     is not None else None))
+                                     is not None else None), tail=tail_in)
     records_tl = (None if binned.pack_idx_tl is None
                   else _pack_records(records, binned.pack_idx_tl))
     return FrameLayout(records=_pack_records(records, binned.pack_idx),
@@ -1359,12 +1554,14 @@ def render_gaussians(cloud, view, proj, width: int, height: int,
     (``big_splat_cap``, ``mid_splat_cap``, ``mid_lo_splat_cap``,
     ``corner_cap``; see :func:`_bin_splats`) and the decimated tail
     (``lod_tail_decim`` pairs per tile at ``lod_tail_d``, default
-    ``_TAIL_D``) and view-dependent SH colours (``cam_pos`` with a cloud
-    that has ``sh_rest``, evaluated by ``eval_sh_colors`` before the
-    projection). ``payload_sort``, ``lod_seg`` and ``interpret`` do not
-    change the output and are ignored; ``exact_seg`` only rounds the
-    exact-mode pair cap, as in the JAX layout. ``lod_tail`` raises
-    ``NotImplementedError``.
+    ``_TAIL_D``), the ``lod_tail`` slab proxy (LOD mode only: the pairs
+    the LOD drops composited as a per-tile homogeneous slab behind the
+    kept lists, see :func:`finalize_planes`) and view-dependent SH colours
+    (``cam_pos`` with a cloud that has ``sh_rest``, evaluated by
+    ``eval_sh_colors`` before the projection). ``payload_sort``,
+    ``lod_seg`` and ``interpret`` do not change the output and are
+    ignored; ``exact_seg`` only rounds the exact-mode pair cap, as in the
+    JAX layout.
 
     ``return_stats=True`` also returns ``overflow_pairs`` (pairs dropped
     behind the head, or behind the tail when there is one),
@@ -1378,8 +1575,6 @@ def render_gaussians(cloud, view, proj, width: int, height: int,
         raise ValueError("mid_lo_splat_cap requires mid_splat_cap")
     if lod_tail_decim is not None and max_splats_per_tile is None:
         raise ValueError("lod_tail_decim requires max_splats_per_tile")
-    if lod_tail:
-        raise NotImplementedError("lod_tail is not ported yet")
     tail_d = _TAIL_D if lod_tail_d is None else lod_tail_d
     if cam_pos is not None and cloud.sh_rest is not None:
         cloud = dataclasses.replace(cloud,
@@ -1392,7 +1587,8 @@ def render_gaussians(cloud, view, proj, width: int, height: int,
                         exact_seg=exact_seg, big_splat_cap=big_splat_cap,
                         mid_splat_cap=mid_splat_cap,
                         mid_lo_splat_cap=mid_lo_splat_cap,
-                        corner_cap=corner_cap, lod_tail_decim=lod_tail_decim)
+                        corner_cap=corner_cap, lod_tail_decim=lod_tail_decim,
+                        lod_tail=lod_tail)
     b = lay.binned
     planes, texec = _composite_call(lay.records, b.row_begin, b.row_end,
                                     lay.ntx, lay.nty, tile_w)
@@ -1404,7 +1600,8 @@ def render_gaussians(cloud, view, proj, width: int, height: int,
             lay.nty, tile_w, tail_d)
         tail_planes = (planes_tl, td, b.kept_tl > 0)
     img = finalize_planes(planes, b.visited, lay.nty, lay.ntx, background,
-                          tile_w, tail_planes, tail_d)[:height, :width]
+                          tile_w, tail_planes, tail_d,
+                          b.tail_slab)[:height, :width]
     if not return_stats:
         return img
     tile_exec = torch.where(b.visited, texec, 0)

@@ -452,17 +452,19 @@ def _raster_dense_culled(setup, depth_init, ncols: int, width: float,
         skipped, pairs
 
 
-def _raster_dense_k6(setup, depth_init, ncols: int, width: float,
-                     height: float, mode: int):
-    """K6 wrapper (same outputs as :func:`_raster_dense_plain`). CPU
-    tensors take the plain version; CUDA tensors launch the kernel (or
-    raise)."""
-    dev = setup.device
-    if dev.type == "cpu":
-        return _raster_dense_plain(setup, depth_init, ncols, width, height,
-                                   mode)
-    if dev.type != "cuda":
-        raise ValueError(f"K6 raster: unsupported device {dev}")
+def _raster_dense_fake(setup, depth_init, ncols, width, height, mode):
+    return tuple(depth_init.new_empty(depth_init.shape, dtype=dt)
+                 for dt in (_F32, _I32, _F32, _F32))
+
+
+@_cuda.kernel_op("k6_raster", _raster_dense_plain, _raster_dense_fake)
+def _k6_op(setup: torch.Tensor, depth_init: torch.Tensor, ncols: int,
+           width: float, height: float, mode: int
+           ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                      torch.Tensor]:
+    """K6's launch: (depth/key, winner column i32, λ0, λ1), each (Hp,
+    Wp)."""
+    dev = _cuda.cuda_device(setup, "K6 raster")
     hp, wp = depth_init.shape
     tpad = setup.shape[1]
     if hp % TILE_H or wp % TILE_W or not 0 <= ncols <= tpad:
@@ -480,6 +482,16 @@ def _raster_dense_k6(setup, depth_init, ncols: int, width: float,
     _cuda.check(err, "K6 raster")
     _cuda.launches["k6_raster"] += 1
     return tuple(outs)
+
+
+def _raster_dense_k6(setup, depth_init, ncols: int, width: float,
+                     height: float, mode: int):
+    """K6 wrapper (the op ``rayeater::k6_raster``; same outputs as
+    :func:`_raster_dense_plain`). CPU tensors take the plain version; CUDA
+    tensors launch the kernel (or raise)."""
+    _cuda.op_device(setup, "K6 raster")
+    return _k6_op(setup, depth_init, ncols, float(width), float(height),
+                  mode)
 
 
 def _binned_fold_inputs(pack, row_begin, row_end, depth_init):
@@ -560,17 +572,22 @@ def _fold_shape(kernel: int, mode: int = 0) -> FoldShape:
     return FoldShape((fw, fh), (cw, ch), ctas, threads, resident)
 
 
-def _raster_binned_k7(pack, row_begin, row_end, depth_init, width: float,
-                      height: float, mode: int):
-    """K7 wrapper (same outputs as :func:`_raster_binned_plain`; tiles with
-    no rows are left unwritten). CPU tensors take the plain version; CUDA
-    tensors launch the kernel (or raise)."""
-    dev = pack.device
-    if dev.type == "cpu":
-        return _raster_binned_plain(pack, row_begin, row_end, depth_init,
-                                    width, height, mode)
-    if dev.type != "cuda":
-        raise ValueError(f"K7 binned raster: unsupported device {dev}")
+def _raster_binned_fake(pack, row_begin, row_end, depth_init, width,
+                        height, mode):
+    return tuple(depth_init.new_empty(depth_init.shape, dtype=dt)
+                 for dt in (_F32, _I32, _F32, _F32, _I32))
+
+
+@_cuda.kernel_op("k7_raster_binned", _raster_binned_plain,
+                 _raster_binned_fake)
+def _k7_op(pack: torch.Tensor, row_begin: torch.Tensor,
+           row_end: torch.Tensor, depth_init: torch.Tensor, width: float,
+           height: float, mode: int
+           ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor,
+                      torch.Tensor]:
+    """K7's launch: (depth/key, winner id, λ0, λ1, winner pack slot), each
+    (Hp, Wp); tiles with no rows are left unwritten."""
+    dev = _cuda.cuda_device(pack, "K7 binned raster")
     hp, wp = depth_init.shape
     ntx, nty = wp // TILE_W, hp // TILE_H
     ntiles = ntx * nty
@@ -593,6 +610,17 @@ def _raster_binned_k7(pack, row_begin, row_end, depth_init, width: float,
     return tuple(outs)
 
 
+def _raster_binned_k7(pack, row_begin, row_end, depth_init, width: float,
+                      height: float, mode: int):
+    """K7 wrapper (the op ``rayeater::k7_raster_binned``; same outputs as
+    :func:`_raster_binned_plain`; tiles with no rows are left unwritten).
+    CPU tensors take the plain version; CUDA tensors launch the kernel (or
+    raise)."""
+    _cuda.op_device(pack, "K7 binned raster")
+    return _k7_op(pack, row_begin, row_end, depth_init, float(width),
+                  float(height), mode)
+
+
 # ---------------------------------------------------------------------------
 # Winner-feature fetch (K8)
 # ---------------------------------------------------------------------------
@@ -613,14 +641,15 @@ def _shade_fetch_plain(fpack, slot, visited):
     return torch.where(ok[..., None], rows, 0.0)
 
 
-def _shade_fetch_k8(fpack, slot, visited):
-    """K8 wrapper (same output as :func:`_shade_fetch_plain`). CPU tensors
-    take the plain version; CUDA tensors launch the kernel (or raise)."""
-    dev = fpack.device
-    if dev.type == "cpu":
-        return _shade_fetch_plain(fpack, slot, visited)
-    if dev.type != "cuda":
-        raise ValueError(f"K8 shade fetch: unsupported device {dev}")
+def _shade_fetch_fake(fpack, slot, visited):
+    return fpack.new_empty((*slot.shape, fpack.shape[1]))
+
+
+@_cuda.kernel_op("k8_shade_fetch", _shade_fetch_plain, _shade_fetch_fake)
+def _k8_op(fpack: torch.Tensor, slot: torch.Tensor,
+           visited: torch.Tensor) -> torch.Tensor:
+    """K8's launch: (Hp, Wp, F) f32 winner-row features."""
+    dev = _cuda.cuda_device(fpack, "K8 shade fetch")
     hp, wp = slot.shape
     ntx, nty = wp // TILE_W, hp // TILE_H
     if hp % TILE_H or wp % TILE_W:
@@ -638,6 +667,14 @@ def _shade_fetch_k8(fpack, slot, visited):
     _cuda.check(err, "K8 shade fetch")
     _cuda.launches["k8_shade_fetch"] += 1
     return out
+
+
+def _shade_fetch_k8(fpack, slot, visited):
+    """K8 wrapper (the op ``rayeater::k8_shade_fetch``; same output as
+    :func:`_shade_fetch_plain`). CPU tensors take the plain version; CUDA
+    tensors launch the kernel (or raise)."""
+    _cuda.op_device(fpack, "K8 shade fetch")
+    return _k8_op(fpack, slot, visited)
 
 
 # ---------------------------------------------------------------------------

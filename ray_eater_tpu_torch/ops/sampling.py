@@ -371,17 +371,21 @@ def _subtile_plain(w0i, w1i, ty0, fy0, tx0, fx0, ty1, fy1, tx1, fx1, frac,
                         for c in range(_C)], 1)
 
 
-def _subtile_call(w0i, w1i, ty0, fy0, tx0, fx0, ty1, fy1, tx1, fx1, frac,
-                  win_table) -> torch.Tensor:
-    """K9 wrapper: (ns, 4, 256) float32. CPU tensors take the plain
-    version; CUDA tensors launch the kernel (or raise)."""
-    dev = frac.device
+def _subtile_fake(w0i, w1i, ty0, fy0, tx0, fx0, ty1, fy1, tx1, fx1, frac,
+                  win_table):
+    return frac.new_empty((frac.shape[0], _C, _SPIX))
+
+
+@_cuda.kernel_op("k9_subtile", _subtile_plain, _subtile_fake)
+def _k9_op(w0i: torch.Tensor, w1i: torch.Tensor, ty0: torch.Tensor,
+           fy0: torch.Tensor, tx0: torch.Tensor, fx0: torch.Tensor,
+           ty1: torch.Tensor, fy1: torch.Tensor, tx1: torch.Tensor,
+           fx1: torch.Tensor, frac: torch.Tensor,
+           win_table: torch.Tensor) -> torch.Tensor:
+    """K9's launch: (ns, 4, 256) f32."""
+    dev = _cuda.cuda_device(frac, "K9 subtile sampler")
     args = (w0i, w1i, ty0, fy0, tx0, fx0, ty1, fy1, tx1, fx1, frac,
             win_table)
-    if dev.type == "cpu":
-        return _subtile_plain(*args)
-    if dev.type != "cuda":
-        raise ValueError(f"K9 subtile sampler: unsupported device {dev}")
     ns = frac.shape[0]
     nwin = win_table.shape[0]
     _cuda.check_arg(w0i, "w0i", _I32, (ns,), dev)
@@ -402,6 +406,16 @@ def _subtile_call(w0i, w1i, ty0, fy0, tx0, fx0, ty1, fy1, tx1, fx1, frac,
     _cuda.check(err, "K9 subtile sampler")
     _cuda.launches["k9_subtile"] += 1
     return out
+
+
+def _subtile_call(w0i, w1i, ty0, fy0, tx0, fx0, ty1, fy1, tx1, fx1, frac,
+                  win_table) -> torch.Tensor:
+    """K9 wrapper (the op ``rayeater::k9_subtile``): (ns, 4, 256) float32.
+    CPU tensors take the plain version; CUDA tensors launch the kernel (or
+    raise)."""
+    _cuda.op_device(frac, "K9 subtile sampler")
+    return _k9_op(w0i, w1i, ty0, fy0, tx0, fx0, ty1, fy1, tx1, fx1, frac,
+                  win_table)
 
 
 def _sample_subtile(tex: Texture, uv: torch.Tensor,

@@ -52,15 +52,17 @@ def _splat_plain(positions: torch.Tensor, height: int, width: int,
     return mask
 
 
-def _splat_k10(positions: torch.Tensor, height: int, width: int,
-               radius: int) -> torch.Tensor:
-    """K10 wrapper (same output as :func:`_splat_plain`). CPU tensors take
-    the plain version; CUDA tensors launch the kernel (or raise)."""
-    dev = positions.device
-    if dev.type == "cpu":
-        return _splat_plain(positions, height, width, radius)
-    if dev.type != "cuda":
-        raise ValueError(f"K10 splat: unsupported device {dev}")
+def _splat_fake(positions, height, width, radius):
+    return positions.new_empty((pad_to(height, TILE_H), pad_to(width,
+                                                               TILE_W)))
+
+
+@_cuda.kernel_op("k10_splat", _splat_plain, _splat_fake)
+def _k10_op(positions: torch.Tensor, height: int, width: int,
+            radius: int) -> torch.Tensor:
+    """K10's launch: the (pad_to(height, 8), pad_to(width, 128)) f32
+    mask, written whole by the kernel."""
+    dev = _cuda.cuda_device(positions, "K10 splat")
     n = positions.shape[0]
     _cuda.check_arg(positions, "positions", _F32, (n, 2), dev)
     if positions.data_ptr() % 8:        # the kernel reads float2
@@ -74,6 +76,15 @@ def _splat_k10(positions: torch.Tensor, height: int, width: int,
     _cuda.check(err, "K10 splat")
     _cuda.launches["k10_splat"] += 1
     return mask
+
+
+def _splat_k10(positions: torch.Tensor, height: int, width: int,
+               radius: int) -> torch.Tensor:
+    """K10 wrapper (the op ``rayeater::k10_splat``; same output as
+    :func:`_splat_plain`). CPU tensors take the plain version; CUDA
+    tensors launch the kernel (or raise)."""
+    _cuda.op_device(positions, "K10 splat")
+    return _k10_op(positions, int(height), int(width), int(radius))
 
 
 def launch_floor() -> None:

@@ -182,14 +182,17 @@ class RasterScene:
 
 
 def scene(name: str, device="cuda", width: int | None = None,
-          height: int | None = None, grid: int = 4) -> RasterScene:
+          height: int | None = None, grid: int = 4,
+          texture=None) -> RasterScene:
     """The raster scene ``name`` (one of :data:`EXTENTS`) at its default
     extent unless ``width``/``height`` are given:
 
-    * ``basic_planes``: :func:`two_planes`, the checkerboard through the
-      default sampler (packed quad gather), spin 45;
+    * ``basic_planes``: :func:`two_planes`, the checkerboard (or
+      ``texture``, a ``Texture``) through the default sampler (packed quad
+      gather), spin 45;
     * ``multipass``: :func:`quad_grid_mesh` (``grid``), a depth prepass,
-      then the LESS_EQUAL lit pass, spin 30;
+      then the LESS_EQUAL lit pass with the checkerboard (or ``texture``),
+      spin 30;
     * ``grid10k`` / ``grid288``: the double-sided 10,082- / 288-triangle
       :func:`grid_mesh` through :func:`mip_checker_texture`, spin 45.
     """
@@ -201,7 +204,8 @@ def scene(name: str, device="cuda", width: int | None = None,
              else grid_mesh(12, 9, 0.9, 0.1, device=dev))
         passes = [(grid_pipeline(), {"tex": mip_checker_texture(dev)})]
     else:
-        tex = texture_from_array(checker_rgba(), device=dev)
+        tex = (texture_from_array(checker_rgba(), device=dev)
+               if texture is None else texture)
         if name == "basic_planes":
             m = two_planes(device=dev)
             passes = [(basic_planes_pipeline(), {"tex": tex})]

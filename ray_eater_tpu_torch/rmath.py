@@ -60,6 +60,20 @@ def cross(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
                         a[0] * b[1] - a[1] * b[0]])
 
 
+def smult(v: torch.Tensor, s) -> torch.Tensor:
+    """Scalar multiply (math.zig:112-119): ``v * f32(s)``."""
+    v = v.to(_F32)
+    return v * _f32(s, v.device)
+
+
+def sdiv(v: torch.Tensor, s) -> torch.Tensor:
+    """Scalar divide (math.zig:121-128): ``v / f32(s)``, divided by a
+    device tensor (a CUDA division by a host scalar is a reciprocal
+    multiply, which rounds differently)."""
+    v = v.to(_F32)
+    return v / _f32(s, v.device)
+
+
 def sub(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Vector subtract."""
     return a - b
@@ -73,6 +87,19 @@ def dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 def mat4(rows, device="cuda") -> torch.Tensor:
     """Row-major (4, 4) float32 matrix (math.zig:179-190)."""
     return _f32(rows, device).reshape(4, 4)
+
+
+def mat4_cm(cols, device="cuda") -> torch.Tensor:
+    """Column-major constructor (``Mat4.createCM``, math.zig:192-194): the
+    transpose of :func:`mat4` of the same numbers."""
+    return mat4(cols, device).T
+
+
+def of(val, device="cuda") -> torch.Tensor:
+    """Constant-filled (4, 4) float32 matrix (math.zig:205-220)."""
+    if isinstance(val, torch.Tensor):
+        return val.to(_F32).reshape(()).expand(4, 4).clone()
+    return torch.full((4, 4), float(val), dtype=_F32, device=device)
 
 
 def identity(device="cuda") -> torch.Tensor:
@@ -89,6 +116,40 @@ def mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def transpose(m: torch.Tensor) -> torch.Tensor:
+    """Transpose (math.zig:328-338)."""
+    return m.to(_F32).T
+
+
+def _rot_z(c: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    """The Z rotation block of cosine ``c`` and sine ``s`` (0-d)."""
+    z, o = torch.zeros_like(c), torch.ones_like(c)
+    return torch.stack([torch.stack([c, -s, z, z]),
+                        torch.stack([s, c, z, z]),
+                        torch.stack([z, z, o, z]),
+                        torch.stack([z, z, z, o])])
+
+
+def rotate_z(m: torch.Tensor, rads) -> torch.Tensor:
+    """Post-multiply by the Z rotation (math.zig:222-232)."""
+    r = _f32(rads, m.device)
+    return mul(m, _rot_z(torch.cos(r), torch.sin(r)))
+
+
+def rotate_x(m: torch.Tensor, rads) -> torch.Tensor:
+    """Post-multiply by the reference's X rotation (math.zig:234-243): the
+    block is ``[[c, s], [-s, c]]``, the transpose of the textbook form,
+    kept as the reference has it."""
+    r = _f32(rads, m.device)
+    c, s = torch.cos(r), torch.sin(r)
+    z, o = torch.zeros_like(c), torch.ones_like(c)
+    rot = torch.stack([torch.stack([o, z, z, z]),
+                       torch.stack([z, c, s, z]),
+                       torch.stack([z, -s, c, z]),
+                       torch.stack([z, z, z, o])])
+    return mul(m, rot)
+
+
 def rotate_y(m: torch.Tensor, rads) -> torch.Tensor:
     """Post-multiply by the Y rotation (math.zig:245-251)."""
     r = _f32(rads, m.device)
@@ -99,6 +160,17 @@ def rotate_y(m: torch.Tensor, rads) -> torch.Tensor:
                        torch.stack([-s, z, c, z]),
                        torch.stack([z, z, z, o])])
     return mul(m, rot)
+
+
+def translate(m: torch.Tensor, by: torch.Tensor) -> torch.Tensor:
+    """The reference's ``Mat4.translate`` (math.zig:287-293): column 3
+    becomes ``(m[3, 0] + by[0], m[3, 1] + by[1], m[3, 2] + by[2],
+    m[3, 3])``. It reads the bottom row, not the translation column; for
+    a bottom row (0, 0, 0, 1), the only kind the reference translates,
+    that is the same. Kept as the reference has it."""
+    m = m.to(_F32)
+    col = torch.cat([m[3, :3] + by.to(_F32)[:3], m[3:4, 3]])
+    return torch.cat([m[:, :3], col[:, None]], 1)
 
 
 def look_at(eye: torch.Tensor, center: torch.Tensor,
@@ -172,3 +244,14 @@ def perspective(fov, aspect, near, far, device="cuda") -> torch.Tensor:
                      o * (-(near * far) / (far - near))]),
         torch.stack([z, z, o, z]),
     ])
+
+
+def to_column_major(m: torch.Tensor) -> torch.Tensor:
+    """The 16 floats in the reference's memory order (math.zig:148-155),
+    column after column."""
+    return m.to(_F32).T.reshape(-1)
+
+
+def from_column_major(flat: torch.Tensor) -> torch.Tensor:
+    """Inverse of :func:`to_column_major`."""
+    return flat.to(_F32).reshape(4, 4).T

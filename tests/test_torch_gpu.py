@@ -1,4 +1,5 @@
-"""K1–K10 on a CUDA device against their plain PyTorch versions, one
+"""K1–K10 on a CUDA device against their plain PyTorch versions (each
+kernel's op checked against its fake implementation), one
 training step through K4 and K5, raster frames through K6–K9, the
 compute_drawing sample through K10 and K6, SH colours through the
 gs_viewer entry point, and ``render_animation``'s CUDA-graph replay
@@ -40,6 +41,7 @@ products may round differently).
 import numpy as np
 import pytest
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from ray_eater_tpu_torch.bench_knobs import (flythrough_camera, layout_kwargs,
                                              render_kwargs, resolve_knobs)
@@ -736,3 +738,88 @@ def test_capture_of_a_host_copy_raises():
     assert len(calls) == animation.WARMUP_STEPS + 1
     torch.cuda.synchronize()
     assert float(torch.ones(1, device=dev).sum()) == 1.0
+
+
+# ---- the kernels as custom ops; baked frames ------------------------------
+
+class _OpCalls(TorchDispatchMode):
+    """Records the first call of each ``rayeater::`` op."""
+
+    def __init__(self):
+        super().__init__()
+        self.calls = {}
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if func.namespace == "rayeater":
+            self.calls.setdefault(func, (args, kwargs or {}))
+        return func(*args, **(kwargs or {}))
+
+
+def test_ops_fake_shapes_match_the_kernels(scene):
+    """Every op, on CUDA inputs from small frames of each main path,
+    passes opcheck's schema and fake-tensor checks: the fake
+    implementation's shapes and dtypes are the kernel's real outputs'."""
+    from ray_eater_tpu_torch import compute_drawing
+    from ray_eater_tpu_torch import raster_scenes as rs
+    cloud, view, proj = scene
+    dev = cloud.means.device
+    with _OpCalls() as rec:
+        gs.render_gaussians(cloud, view, proj, W, H, tile_w=32,
+                            max_splats_per_tile=64, lod_tail_decim=64)
+        params = [p.clone().requires_grad_(True) for p in
+                  (cloud.means, cloud.scales, cloud.quats, cloud.opacities,
+                   cloud.colors)]
+        gs.render_gaussians_diff(*params, view, proj, W, H,
+                                 tile_w=32).sum().backward()
+        rs.scene("basic_planes", dev, 256, 128).frame(0.5)
+        rs.scene("grid10k", dev, 256, 128).frame(0.5)
+        compute_drawing.setup(dev, 0, 300, 200, 32)
+    names = sorted(f.__name__.split(".")[0] for f in rec.calls)
+    assert names == sorted(NO_LAUNCHES), names
+    for func, (args, kwargs) in rec.calls.items():
+        res = torch.library.opcheck(func, args, kwargs, test_utils=(
+            "test_schema", "test_faketensor"))
+        assert set(res.values()) == {"SUCCESS"}, (func, res)
+
+
+def test_cuda_bake_loads_and_reproduces_the_frame(tmp_path, scene):
+    """A fog frame (temporal LOD budget carried) and the multipass
+    RenderGraph frame baked on CUDA: the loaded programs equal the
+    unbaked ones bit for bit, and launch the kernels through the ops."""
+    from ray_eater_tpu_torch import multipass
+    from ray_eater_tpu_torch import raster_scenes as rs
+    from ray_eater_tpu_torch.graph import render_graph as tgraph
+    from ray_eater_tpu_torch.ops import _cuda as kernels
+    cloud, _, _ = scene
+    dev = cloud.means.device
+    ntx, nty = gs.num_tiles(W, H, 32)
+
+    def render(i):
+        view, proj = flythrough_camera(i["t"], W, H, device=dev)
+        img, st = gs.render_gaussians(cloud, view, proj, W, H, tile_w=32,
+                                      max_splats_per_tile=64,
+                                      lod_budget=i["budget"],
+                                      return_stats=True)
+        return {"image": img, "budget": gs.update_lod_budget(
+            st["tile_exec"], 64, ntx, nty, st["tile_kept"],
+            st["tile_count"])}
+
+    fog = (tgraph.RenderGraph("fog").external("t", "budget")
+           .add_pass("render", render, reads=("t", "budget"),
+                     writes=("image", "budget"))
+           .output("image", "budget").bake())
+    b0 = gs.initial_lod_budget(W, H, 32, 64, dev)
+    t0 = torch.zeros((), device=dev)
+    fog.save_baked(str(tmp_path / "fog.pt2"), t=t0, budget=b0)
+    loaded = tgraph.load_baked(str(tmp_path / "fog.pt2"))
+    kernels.reset_launches()
+    want, got = fog(t=t0 + 0.3, budget=b0), loaded(t=t0 + 0.3, budget=b0)
+    assert torch.equal(got["image"], want["image"])
+    assert torch.equal(got["budget"], want["budget"])
+    assert kernels.launches["k1_project"] == 2
+    assert kernels.launches["k2_composite"] == 2
+    mp = multipass.frame_graph(rs.scene("multipass", dev, 480, 272))
+    mp.save_baked(str(tmp_path / "mp.pt2"), t=t0)
+    lmp = tgraph.load_baked(str(tmp_path / "mp.pt2"))
+    a, b = mp(t=t0 + 0.5)["fb"], lmp(t=t0 + 0.5)["fb"]
+    assert torch.equal(a.color, b.color) and torch.equal(a.depth, b.depth)

@@ -160,14 +160,16 @@ def test_render_graph_build_and_call_errors(pkg):
     assert g2.bake(jit=False, donate=("x",)).donated == ["x"]
 
 
-def test_baked_frame_serialization_is_queued():
+def test_baked_frame_serialization_is_queued(tmp_path):
+    """Once queued, now ported: the frame bakes, saves and loads
+    (tests/test_torch_baked.py holds baked frames to the unbaked ones)."""
     prog = (tgraph.RenderGraph("ser").external("x")
             .add_pass("p", lambda i: {"y": i["x"] * 3.0}, reads=("x",),
                       writes=("y",)).output("y").bake())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        prog.save_baked("frame.bin", x=torch.zeros(8))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tgraph.load_baked("frame.bin")
+    path = str(tmp_path / "frame.bin")
+    prog.save_baked(path, x=torch.zeros(8))
+    out = tgraph.load_baked(path)(x=torch.full((8,), 2.0))
+    assert torch.equal(out["y"], torch.full((8,), 6.0))
 
 
 def test_multipass_frame_graph_schedule_matches_the_sample():

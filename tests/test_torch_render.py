@@ -177,11 +177,27 @@ def test_bit_identical_knobs_do_not_change_output(mpt):
                                    msg=str(extra))
 
 
-@pytest.mark.parametrize("kw", [dict(max_splats_per_tile=128, lod_tail=True)])
+@pytest.mark.parametrize("kw", [dict(max_splats_per_tile=2048, lod_tail=True)])
 def test_unported_knobs_raise(kw):
+    """No knob is left unported: ``lod_tail`` (the last one) renders. This
+    pool holds every pair of every tile, so the slab is empty and the frame
+    is bit-equal to the frame without it; a pool that drops pairs changes
+    the frame (tests/test_torch_lod_tail.py holds the slab itself to JAX)."""
     view, proj = (np.asarray(m) for m in _camera(256, 96))
-    with pytest.raises(NotImplementedError):
-        gs.render_gaussians(CLOUD, view, proj, 256, 96, **kw)
+    img, st = gs.render_gaussians(CLOUD, view, proj, 256, 96,
+                                  return_stats=True, **kw)
+    assert img.shape == (96, 256, 3) and bool(torch.isfinite(img).all())
+    assert int(st["overflow_pairs"]) == 0
+    base = gs.render_gaussians(CLOUD, view, proj, 256, 96,
+                               **{**kw, "lod_tail": False})
+    assert torch.equal(img, base)
+    small = {**kw, "max_splats_per_tile": 128}
+    img, st = gs.render_gaussians(CLOUD, view, proj, 256, 96,
+                                  return_stats=True, **small)
+    assert int(st["overflow_pairs"]) > 0
+    assert bool(torch.isfinite(img).all())
+    assert not torch.equal(img, gs.render_gaussians(
+        CLOUD, view, proj, 256, 96, **{**small, "lod_tail": False}))
 
 
 # the side-channel and decimated-tail knobs map onto _bin_splats's names

@@ -127,3 +127,68 @@ def test_raster_math_matches_jax():
     got = rmath.transform_points(m, torch.from_numpy(pts)).numpy()
     want = np.asarray(jrmath.transform_points(np.asarray(m.numpy()), pts))
     np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)
+
+
+def _ulp(got, want, maxulp=1):
+    np.testing.assert_array_max_ulp(np.asarray(got, np.float32),
+                                    np.asarray(want, np.float32), maxulp)
+
+
+def test_rest_of_rmath_matches_jax():
+    """rotate_x, rotate_z (and _rot_z), translate with its bottom-row quirk,
+    to/from_column_major, of, mat4_cm, transpose, smult and sdiv on
+    tests/test_math.py's cases, within 1 ulp of the JAX package."""
+    rows = [[1, 2, 3, 4], [5, 6, 7, 8], [9, 1, 2, 3], [4, 5, 6, 7]]
+    m, jm = rmath.mat4(rows, device="cpu"), jrmath.mat4(rows)
+    eye, jeye = rmath.identity("cpu"), jrmath.identity()
+    # column-major order: columns contiguous, and back
+    cm = rmath.to_column_major(rmath.mat4([[1, 2, 3, 4]] * 4, device="cpu"))
+    np.testing.assert_array_equal(cm.numpy(), [1] * 4 + [2] * 4 + [3] * 4
+                                  + [4] * 4)
+    np.testing.assert_array_equal(rmath.to_column_major(m).numpy(),
+                                  np.asarray(jrmath.to_column_major(jm)))
+    np.testing.assert_array_equal(
+        rmath.from_column_major(rmath.to_column_major(m)).numpy(),
+        m.numpy())
+    # translate: the reference fixture and the bottom-row quirk
+    by = rmath.vec(10.0, 20.0, 30.0, device="cpu")
+    np.testing.assert_array_equal(
+        rmath.translate(eye, by).numpy(),
+        [[1, 0, 0, 10], [0, 1, 0, 20], [0, 0, 1, 30], [0, 0, 0, 1]])
+    quirk = [[1, 0, 0, 5], [0, 1, 0, 6], [0, 0, 1, 7], [2, 3, 4, 1]]
+    got = rmath.translate(rmath.mat4(quirk, device="cpu"), by).numpy()
+    np.testing.assert_array_equal(
+        got, np.asarray(jrmath.translate(jrmath.mat4(quirk),
+                                         jrmath.vec(10.0, 20.0, 30.0))))
+    np.testing.assert_array_equal(got[:, 3], [12, 23, 34, 1])
+    # rotations: the reference's X layout, textbook Z; post-multiplies
+    for r in (0.0, 0.5, 0.7, float(np.float32(np.pi / 4))):
+        _ulp(rmath.rotate_x(eye, r).numpy(), jrmath.rotate_x(jeye, r))
+        _ulp(rmath.rotate_z(eye, r).numpy(), jrmath.rotate_z(jeye, r))
+        rz = rmath._rot_z(torch.cos(torch.tensor(r)),
+                          torch.sin(torch.tensor(r)))
+        _ulp(rz.numpy(), jrmath._rot_z(np.cos(np.float32(r)),
+                                       np.sin(np.float32(r))))
+        np.testing.assert_allclose(rmath.rotate_z(m, r).numpy(),
+                                   np.asarray(jrmath.rotate_z(jm, r)),
+                                   rtol=1e-6, atol=1e-6)
+        np.testing.assert_allclose(rmath.rotate_x(m, r).numpy(),
+                                   np.asarray(jrmath.rotate_x(jm, r)),
+                                   rtol=1e-6, atol=1e-6)
+    c = np.cos(0.7)
+    np.testing.assert_allclose(rmath.rotate_x(eye, 0.7).numpy()[1:3, 1:3],
+                               [[c, np.sin(0.7)], [-np.sin(0.7), c]],
+                               atol=1e-6)
+    # constructors and scalar ops
+    np.testing.assert_array_equal(rmath.of(2.5, "cpu").numpy(),
+                                  np.asarray(jrmath.of(2.5)))
+    np.testing.assert_array_equal(rmath.of(torch.tensor(1.5)).numpy(),
+                                  np.full((4, 4), 1.5))
+    np.testing.assert_array_equal(rmath.mat4_cm(rows, "cpu").numpy(),
+                                  np.asarray(jrmath.mat4_cm(rows)))
+    np.testing.assert_array_equal(rmath.transpose(m).numpy(),
+                                  np.asarray(jrmath.transpose(jm)))
+    v, jv = rmath.vec(1.0, -2.5, 3.3, device="cpu"), jrmath.vec(1.0, -2.5, 3.3)
+    for s in (3.0, 0.1, 7.7):
+        _ulp(rmath.smult(v, s).numpy(), jrmath.smult(jv, s), 0)
+        _ulp(rmath.sdiv(v, s).numpy(), jrmath.sdiv(jv, s), 0)
