@@ -70,7 +70,25 @@ kernel against its plain PyTorch version, and drives the port's main paths:
   bit-equal to the unbaked frame, and an 8-frame ``render_animation`` of
   the loaded fog program u8-equal to the unbaked one's;
 * ``lod_tail`` fog: the PSNR gate's samples with the slab proxy, beside
-  the same figure without it (printed, not gated).
+  the same figure without it (printed, not gated);
+* K9's bfloat16-window instantiation (``texture_from_array``'s
+  ``window_dtype``) against its plain version on the grid10k frame,
+  timed beside the float32 windows (logged, not in the kernels line);
+* the multi-device phase: D = ``torch.cuda.device_count()`` ranks spawned
+  with NCCL, one card each (``make_device_mesh``). Each rank renders fog
+  (1M splats, 1920x1080, its temporal budget carried over 8 frames)
+  through ``render_gaussians_sharded`` with the all_gather and the ring
+  exchange, inria (K3 in the band) and fog's exact sort-last frame
+  (``render_gaussians_depth_sliced``), grid10k through
+  ``render_mesh_sharded`` (K7, K8, K9) and five ``make_train_step_dp``
+  steps at ``gs_trainer``'s defaults, each held to the single-device
+  frames or steps of the same inputs within JAX's own bounds (LOD mean
+  5e-3, exact max 1e-4; raster 2e-5 on all but 0.5% of the pixels, at
+  D > 1 the textured colour by the 30 dB subtile gate; loss rtol 1e-5,
+  means 1e-6); at D = 1 one sharded fog frame step also goes
+  through the animation phase (captured, replay u8-equal to eager). Each
+  rank's launches of K1, K2, K3, K7, K8 and K9 over the sharded paths
+  must be above zero and go into the kernels line.
 
 Every kernel is called through its ``torch.library`` custom op
 (``rayeater::k1_project`` .. ``k10_splat``), whose CUDA implementation
@@ -199,6 +217,25 @@ VIEWER_STEPS = ((0.0, 0.8, 2.5), (0.05, 0.8, 2.5), (0.5, 1.1, 2.5),
 VIEWER_SERVED = 30       # timed served frames at 1080p
 VIEWER_RESIZE = ((1280, 720), (1920, 1080))   # the resize round trip
 BAKED_FRAMES = 8         # frames of a baked program held to the unbaked
+
+# ---- the multi-device phase -------------------------------------------------
+MD_FRAMES = 8            # fog frames, the temporal budget carried
+MD_INRIA_FRAMES = 2
+MD_TRAIN_STEPS = 5       # make_train_step_dp steps at gs_trainer's defaults
+# a sharded frame against the single-device frame: JAX's own bounds
+# (tests/test_parallel.py:44, :72): exact mode max, LOD mode mean (each
+# band grants its own pool; at D = 1 the band is the frame)
+MD_EXACT_MAX = 1e-4
+MD_LOD_MEAN = 5e-3
+# the sharded raster: within 2e-5 but on 0.5% of the pixels (knife edges:
+# the c + b*y0 shift rounds once more than the frame's planes); at D > 1
+# the textured colour by SUBTILE_MIN_PSNR (per-band subtile plans)
+MD_RASTER_TOL = 2e-5
+MD_RASTER_SHARE = 5e-3
+# make_train_step_dp against make_train_step (tests/test_gs_training.py:
+# 194-196): the band losses' mean reassociates
+MD_LOSS_RTOL = 1e-5
+MD_MEANS_ATOL = 1e-6
 
 
 def log(*a):
@@ -977,6 +1014,47 @@ def check_grid_kernels(torch, raster, sampling, sc, t, reps):
         sampling._subtile_plain, args9, err9,
         ns * sampling._SPIX * SUBTILE_PIXEL_BYTES, 0, "grid10k frame", reps)
     return r7, r8, r9
+
+
+def check_k9_bf16(torch, raster, sampling, rs, dev, t, reps):
+    """K9's bfloat16-window instantiation against its plain version on the
+    grid10k frame at time ``t``, with the scene's texture uploaded with
+    bf16 windows (``window_dtype``); timed beside the float32 windows'
+    launch on the same plan. Logged, not in the kernels line (the main
+    paths sample float32 windows)."""
+    from ray_eater_tpu_torch.core.resources import Sampler, texture_from_array
+    sc = rs.scene("grid10k", dev)
+    pipe = sc.passes[0][0]
+    tex = texture_from_array(rs.mip_checker_u8(),
+                             Sampler(mipmap=True, max_anisotropy=4.0),
+                             srgb=False, device=dev,
+                             window_dtype=torch.bfloat16)
+    fb, ds = rs.draw_setup(sc, t)
+    (_, gt, g0, g1, feats), zt = raster._raster_draw(pipe, ds, fb)
+    pv = raster._interpolate(gt, g0, g1, ds.tri_vary, ds.inv_w, zt, feats)
+    plan = sampling._subtile_plan(tex, pv.vary["uv"], pv.mask)
+    args = (plan.w0i, plan.w1i, *plan.planes, tex.win_table)
+    k = sampling._subtile_call(*args)
+    p = sampling._subtile_plain(*args)
+    torch.cuda.synchronize()
+    err = float((k - p).abs().max())
+    ns = plan.cus.shape[0]
+    rec = raster_record(
+        torch, "K9 subtile sampler (bf16 windows)",
+        "ray_eater_tpu_torch/csrc/sampling.cu",
+        "ray_eater_tpu/ops/sampling.py:190", sampling._subtile_call,
+        sampling._subtile_plain, args, err,
+        ns * sampling._SPIX * SUBTILE_PIXEL_BYTES, 0, "grid10k frame", reps)
+    f32 = rs.mip_checker_texture(dev).win_table
+    ms32 = time_ms(torch, lambda: sampling._subtile_call(*args[:-1], f32),
+                   reps)
+    log(f"K9 bf16 windows vs plain [grid10k frame]: max abs {err:.3e}; "
+        f"{rec['ms']:.4f} ms (f32 windows on the same plan {ms32:.4f} ms), "
+        f"plain {rec['plain_ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms; "
+        f"window table {tex.win_table.numel() * 2} B vs "
+        f"{f32.numel() * 4} B")
+    require(err <= RASTER_TOL, f"K9 bf16 differs by {err}")
+    return rec
 
 
 def check_raster_small(torch, rs, devs=("cuda", "cpu")):
@@ -1766,6 +1844,321 @@ def lod_tail_phase(torch, gs, fog):
     return min(with_tail), min(base)
 
 
+def sharded_kwargs(kw: dict) -> dict:
+    """The ``render_kwargs`` that ``render_gaussians_sharded`` takes (the
+    JAX function's keywords: no ``pairs_cap_factor``, no
+    ``payload_sort``)."""
+    return {k: v for k, v in kw.items()
+            if k not in ("pairs_cap_factor", "payload_sort")}
+
+
+class ShardedFrames(BenchFrames):
+    """:class:`BenchFrames` through ``render_gaussians_sharded`` on
+    ``mesh``: the budgets are full-grid over the banded tile grid (its
+    rows padded to a multiple of D)."""
+
+    def __init__(self, gs, cloud, knobs, kw_meas, camera, mesh, sharded,
+                 exchange: str):
+        super().__init__(gs, cloud, knobs, sharded_kwargs(kw_meas), None,
+                         camera)
+        self.mesh, self.sharded, self.exchange = mesh, sharded, exchange
+        ntx, nty = gs.num_tiles(W, H, knobs["tile_w"])
+        d = mesh.size()
+        self.ntx, self.nty = ntx, -(-nty // d) * d
+
+    def frame(self, t, budget):
+        view, proj = self.camera(t, W, H, device=self.cloud.means.device)
+        return self.sharded.render_gaussians_sharded(
+            self.cloud, view, proj, W, H, self.mesh,
+            lod_budget=budget if self.temporal else None,
+            splat_exchange=self.exchange, **self.kw_meas)
+
+    def initial_budget(self):
+        return self.gs.initial_lod_budget(
+            W, self.nty * self.gs.TILE_H, self.knobs["tile_w"],
+            self.knobs["max_splats_per_tile"], self.cloud.means.device)
+
+    def next_budget(self, st, budget):
+        if not self.temporal:
+            return budget
+        return self.gs.update_lod_budget(
+            st["tile_exec"], self.knobs["max_splats_per_tile"], self.ntx,
+            self.nty, st["tile_kept"], st["tile_count"],
+            dry_floor=self.knobs["dry_floor"])
+
+
+def md_window(torch, frames, n: int):
+    """``n`` frames of ``frames`` from t = 0 (the budget carried when
+    temporal): (the images, ms/frame by CUDA events)."""
+    budget = frames.initial_budget() if frames.temporal else None
+    frames.frame(0.0, budget)          # warm-up (allocator, first launches)
+    torch.cuda.synchronize()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    imgs = []
+    e0.record()
+    for i in range(n):
+        img, st = frames.frame(f32(np.float32(i) / np.float32(60.0)), budget)
+        imgs.append(img)
+        budget = frames.next_budget(st, budget)
+    e1.record()
+    e1.synchronize()
+    return imgs, e0.elapsed_time(e1) / n
+
+
+def md_compare(torch, label, got, want, ms, ms_single, rec, max_abs=None,
+               mean_abs=None):
+    """A sharded window against the single-device one: each frame's max and
+    mean abs (gated by the limits given) and the share of its pixels off
+    by more than ``MD_EXACT_MAX``."""
+    err = [(g - w).abs() for g, w in zip(got, want)]
+    mx = [float(e.max()) for e in err]
+    mean = [float(e.mean()) for e in err]
+    off = [float((e.amax(-1) > MD_EXACT_MAX).float().mean()) for e in err]
+    rec[label] = dict(max=mx, mean=mean, share=off, ms=ms,
+                      single_ms=ms_single)
+    rec["log"].append(
+        f"{label}: {len(got)} frames, max abs {max(mx):.3e}, mean abs "
+        f"{max(mean):.3e}, share of pixels off by more than "
+        f"{MD_EXACT_MAX:g} {max(off):.2e} (worst frame); {ms:.3f} ms/frame "
+        f"sharded, {ms_single:.3f} single-device (CUDA events, eager)")
+    ok = ((max_abs is None or max(mx) <= max_abs)
+          and (mean_abs is None or max(mean) <= mean_abs)
+          and all(bool(torch.isfinite(g).all()) for g in got))
+    if not ok:
+        rec["failures"].append(f"{label}: max {mx} mean {mean} share {off}")
+
+
+def md_rank(rank: int, d: int, port: int, out_dir: str) -> None:
+    """One rank of the multi-device phase (``d`` ranks, one card each,
+    NCCL): the sharded fog (all_gather and ring), inria and sort-last
+    frames at 1M splats / 1080p and grid10k through render_mesh_sharded,
+    each against the single-device frames of the same inputs, and
+    ``MD_TRAIN_STEPS`` data-parallel training steps against the
+    single-device steps; launch counts over the sharded paths; at D = 1 a
+    captured sharded fog frame (``animation_phase``). Writes
+    ``rank<r>.json`` into ``out_dir``."""
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    from ray_eater_tpu_torch import gs_trainer
+    from ray_eater_tpu_torch import raster_scenes as rs
+    from ray_eater_tpu_torch.bench_knobs import (bench_cloud,
+                                                 flythrough_camera,
+                                                 render_kwargs,
+                                                 resolve_knobs)
+    from ray_eater_tpu_torch.core.resources import create_framebuffer
+    from ray_eater_tpu_torch.models import gs_training as tr
+    from ray_eater_tpu_torch.ops import _cuda as cuda
+    from ray_eater_tpu_torch.ops import gs, raster
+    from ray_eater_tpu_torch.parallel import sharded
+
+    mesh = sharded.make_device_mesh(d, device="cuda",
+                                    init_method=f"tcp://localhost:{port}",
+                                    rank=rank)
+    dev = torch.device("cuda", torch.cuda.current_device())
+    cuda.lib()
+    rec = {"rank": rank, "d": d, "device": str(dev), "log": [],
+           "failures": []}
+    launches = {k: 0 for k in cuda.launches}
+
+    def count(fn):
+        """``fn()`` with the launch counts zeroed just before and read just
+        after, added to ``launches``."""
+        torch.cuda.synchronize()
+        cuda.reset_launches()
+        out = fn()
+        torch.cuda.synchronize()
+        for k, v in cuda.launches.items():
+            launches[k] += v
+        return out
+
+    # fog: the temporal budget over MD_FRAMES frames, all_gather and ring
+    knobs = resolve_knobs("fog", N_SPLATS, env={})
+    kw = render_kwargs(knobs, exact=False, interpret=False)
+    cloud = bench_cloud("fog", N_SPLATS, dev)
+    single = BenchFrames(gs, cloud, knobs, kw, None, flythrough_camera)
+    want, ms1 = md_window(torch, single, MD_FRAMES)
+    for ex in ("all_gather", "ring"):
+        fr = ShardedFrames(gs, cloud, knobs, kw, flythrough_camera, mesh,
+                           sharded, ex)
+        got, ms = count(lambda: md_window(torch, fr, MD_FRAMES))
+        md_compare(torch, f"fog LOD sharded ({ex})", got, want, ms, ms1,
+                   rec, mean_abs=MD_LOD_MEAN)
+        del got
+    del want
+
+    # sort-last, exact, against the exact single-device frame
+    kw_exact = render_kwargs(knobs, exact=True, interpret=False)
+    view, proj = flythrough_camera(0.0, W, H, device=dev)
+    ref = gs.render_gaussians(cloud, view, proj, W, H, **kw_exact)
+    torch.cuda.synchronize()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    ref = gs.render_gaussians(cloud, view, proj, W, H, **kw_exact)
+    e1.record()
+    e1.synchronize()
+    ms1 = e0.elapsed_time(e1)
+
+    def sliced():
+        sharded.render_gaussians_depth_sliced(
+            cloud, view, proj, W, H, mesh, tile_w=knobs["tile_w"])
+        torch.cuda.synchronize()
+        e0.record()
+        out = sharded.render_gaussians_depth_sliced(
+            cloud, view, proj, W, H, mesh, tile_w=knobs["tile_w"],
+            return_stats=True)
+        e1.record()
+        e1.synchronize()
+        return out, e0.elapsed_time(e1)
+    (img, st), ms = count(sliced)
+    rec["log"].append(f"fog exact depth-sliced stats: overflow_pairs "
+                      f"{int(st['overflow_pairs'])}, overflow_big_splats "
+                      f"{int(st['overflow_big_splats'])}, lossless "
+                      f"{bool(st['lossless'])}")
+    md_compare(torch, "fog exact depth-sliced", [img], [ref], ms, ms1, rec,
+               max_abs=MD_EXACT_MAX)
+
+    # the captured sharded fog frame (D = 1): replay u8-equal to eager
+    if d == 1:
+        fr = ShardedFrames(gs, cloud, knobs, kw, flythrough_camera, mesh,
+                           sharded, "all_gather")
+        anim = animation_phase(torch, cuda, "fog sharded (D = 1)", fr.step,
+                               carry=fr.initial_budget(),
+                               finite=img_finite(torch), dev=dev)
+        rec["animation"] = {k: anim[k] for k in (
+            "scene", "frames", "replay_ms", "replay_host_ms",
+            "replay_busy_ms", "eager_ms", "eager_host_ms", "capture_s",
+            "launches_per_frame", "differing_pixels", "carry_equal")}
+    del cloud, ref, img
+    torch.cuda.empty_cache()
+
+    # inria: K3 in the band
+    knobs = resolve_knobs("inria", N_SPLATS, env={})
+    kw = render_kwargs(knobs, exact=False, interpret=False)
+    cloud = bench_cloud("inria", N_SPLATS, dev)
+    want, ms1 = md_window(torch, BenchFrames(gs, cloud, knobs, kw, None,
+                                             flythrough_camera),
+                          MD_INRIA_FRAMES)
+    fr = ShardedFrames(gs, cloud, knobs, kw, flythrough_camera, mesh,
+                       sharded, "all_gather")
+    got, ms = count(lambda: md_window(torch, fr, MD_INRIA_FRAMES))
+    md_compare(torch, "inria LOD sharded (all_gather)", got, want, ms, ms1,
+               rec, mean_abs=MD_LOD_MEAN)
+    del cloud, want, got
+    torch.cuda.empty_cache()
+
+    # grid10k (binned: K7, K8, K9) through render_mesh_sharded
+    sc = rs.scene("grid10k", dev)
+    pipe, res = sc.passes[0]
+    uni = sc.uniforms(0.5)
+    want = raster.render_mesh(pipe, sc.mesh, uni, res,
+                              create_framebuffer(W, H, device=dev))
+    wc, wd = want.color[:H, :W], want.depth[:H, :W]
+
+    def grid():
+        sharded.render_mesh_sharded(pipe, sc.mesh, uni, res, W, H, mesh)
+        torch.cuda.synchronize()
+        e0.record()
+        out = sharded.render_mesh_sharded(pipe, sc.mesh, uni, res, W, H,
+                                          mesh)
+        e1.record()
+        e1.synchronize()
+        return out, e0.elapsed_time(e1)
+    (gc, gd), ms = count(grid)
+    share = float(((gc - wc).abs().amax(-1) > MD_RASTER_TOL).float().mean())
+    dshare = float(((gd - wd).abs() > MD_RASTER_TOL).float().mean())
+    mse = float(torch.mean((gc[..., :3] - wc[..., :3]) ** 2))
+    psnr = 10 * np.log10(1.0 / max(mse, 1e-12))
+    rec["grid10k"] = dict(max=float((gc - wc).abs().max()), share=share,
+                          depth_share=dshare, psnr=psnr, ms=ms)
+    rec["log"].append(
+        f"grid10k sharded raster: colour max abs "
+        f"{float((gc - wc).abs().max()):.3e}, share of pixels off by more "
+        f"than {MD_RASTER_TOL:g} {share:.2e} (depth {dshare:.2e}), PSNR "
+        f"{psnr:.2f} dB; {ms:.3f} ms/frame sharded (CUDA events, eager)")
+    # at D > 1 each band plans its own subtiles and fallback budget and
+    # differences its uv at its own edge, so the textured colour is held
+    # by the subtile sampler's PSNR gate; the fold (depth) by the share
+    ok = (share <= MD_RASTER_SHARE if d == 1 else psnr >= SUBTILE_MIN_PSNR)
+    if not ok or dshare > MD_RASTER_SHARE:
+        rec["failures"].append(f"grid10k sharded raster: share {share}, "
+                               f"depth {dshare}, PSNR {psnr}")
+
+    # data-parallel training at gs_trainer's defaults
+    args = gs_trainer.parse_args([])
+    losses = {}
+    for name in ("single", "dp"):
+        view, proj, target, params = gs_trainer.train_setup(
+            args.splats, args.width, args.height, dev, "jnp")
+        opt = tr.adam(params, args.lr)
+        step = (tr.make_train_step_dp(opt, view, proj, mesh) if name == "dp"
+                else tr.make_train_step(opt, view, proj))
+        run_steps = (lambda: [float(step(params, target))
+                              for _ in range(MD_TRAIN_STEPS)])
+        losses[name] = count(run_steps) if name == "dp" else run_steps()
+        losses[name + "_means"] = params.means.detach()
+    dl = np.abs(np.array(losses["dp"]) - np.array(losses["single"]))
+    dm = float((losses["dp_means"] - losses["single_means"]).abs().max())
+    rec["train"] = dict(single=losses["single"], dp=losses["dp"],
+                        means_max=dm)
+    rec["log"].append(
+        f"make_train_step_dp ({args.splats} splats {args.width}x"
+        f"{args.height}, {MD_TRAIN_STEPS} steps): losses {losses['dp']} vs "
+        f"single-device {losses['single']}; means max abs {dm:.3e}")
+    if (dl > MD_LOSS_RTOL * np.abs(np.array(losses["single"]))).any() or \
+            dm > MD_MEANS_ATOL:
+        rec["failures"].append(f"dp training: losses {losses}, means {dm}")
+    rec["launches"] = launches
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(rec, f)
+    import torch.distributed as dist
+    dist.destroy_process_group()
+
+
+def multidevice_phase(torch):
+    """The multi-device phase at D = ``torch.cuda.device_count()`` ranks,
+    spawned, one card each, NCCL (:func:`md_rank`). Returns (the launch
+    counts summed over the ranks, the animation record or None, rank 0's
+    record)."""
+    import socket
+
+    import torch.multiprocessing as mp
+    d = torch.cuda.device_count()
+    with socket.socket() as sk:
+        sk.bind(("localhost", 0))
+        port = sk.getsockname()[1]
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as out_dir:
+        try:
+            mp.spawn(md_rank, args=(d, port, out_dir), nprocs=d)
+        except Exception as e:
+            raise SmokeFailure(f"multi-device phase: a rank failed: {e}")
+        recs = []
+        for r in range(d):
+            with open(os.path.join(out_dir, f"rank{r}.json")) as f:
+                recs.append(json.load(f))
+    log(f"multi-device phase: {d} rank(s), NCCL, "
+        f"{time.perf_counter() - t0:.1f} s (spawn included)")
+    for line in recs[0]["log"]:
+        log(f"  [rank 0] {line}")
+    total = {}
+    for rec in recs:
+        require(not rec["failures"], f"multi-device rank {rec['rank']}: "
+                f"{rec['failures']}")
+        for key in ("k1_project", "k2_composite", "k3_composite_tail",
+                    "k7_raster_binned", "k8_shade_fetch", "k9_subtile"):
+            require(rec["launches"][key] > 0, f"multi-device rank "
+                    f"{rec['rank']}: {key} was not launched")
+        for k, v in rec["launches"].items():
+            total[k] = total.get(k, 0) + v
+    log(f"multi-device launches, summed over the ranks: {total}")
+    return total, recs[0].get("animation"), recs[0]
+
+
 def run() -> int:
     t_start = time.perf_counter()
     import torch
@@ -1938,6 +2331,7 @@ def run() -> int:
                      "multipass lit pass t=0.5", reps=20)
     k7, k8, k9 = check_grid_kernels(torch, raster, sampling,
                                     rs.scene("grid10k", dev), 0.5, reps=20)
+    check_k9_bf16(torch, raster, sampling, rs, dev, 0.5, reps=20)
     torch.cuda.empty_cache()
     check_raster_small(torch, rs)
     raster_launches = raster_paths(torch, cuda, dev)
@@ -1996,6 +2390,11 @@ def run() -> int:
     sh_launches, anim = sh_path(torch, gs, cuda, dev)
     anims.append(anim)
     torch.cuda.empty_cache()
+
+    # ---- multi-device: sharded K1, K2, K3, K7, K8, K9 on each rank -------
+    md_launches, anim, _ = multidevice_phase(torch)
+    if anim is not None:
+        anims.append(anim)
     log("animation phase, ms/frame (replay by CUDA events; eager loop by "
         "CUDA events), capture s: " + "; ".join(
             f"{a['scene']} {a['replay_ms']:.3f} / {a['eager_ms']:.3f}, "
@@ -2008,7 +2407,8 @@ def run() -> int:
                            "carry_equal")} for a in anims]}))
 
     paths = (fog_launches, inria_launches, train_launches, adc_launches,
-             *raster_launches.values(), drawing_launches, sh_launches)
+             *raster_launches.values(), drawing_launches, sh_launches,
+             md_launches)
     for d, key in ((k1, "k1_project"), (k2, "k2_composite"),
                    (k3, "k3_composite_tail"), (k4, "k4_composite_ckpt"),
                    (k5, "k5_composite_bwd"), (k6, "k6_raster"),

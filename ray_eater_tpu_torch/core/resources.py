@@ -109,9 +109,9 @@ class Texture:
     neighbours resolved under the address mode), ``mip_table`` the
     quad-packed pyramid ``(sum h_l*w_l, 4)`` int32 with
     ``mip_dims = ((h_l, w_l, row_offset), ...)``, and ``win_table``
-    ``(NWIN, 4*32, 32)`` float32: every 16-strided 32x32 texel window of
-    every level, channel-blocked, with ``win_dims = ((nwy_l, nwx_l,
-    window_offset), ...)``."""
+    ``(NWIN, 4*32, 32)`` float32 (or bfloat16, ``window_dtype``): every
+    16-strided 32x32 texel window of every level, channel-blocked, with
+    ``win_dims = ((nwy_l, nwx_l, window_offset), ...)``."""
     data: torch.Tensor
     sampler: Sampler = dataclasses.field(default=Sampler())
     packed: torch.Tensor | None = None
@@ -242,9 +242,19 @@ def _windows_fit(h0: int, w0: int, mode: AddressMode) -> bool:
 
 def texture_from_array(rgba_u8: np.ndarray, sampler: Sampler | None = None,
                        srgb: bool = True, pack: bool = True,
-                       device="cuda") -> Texture:
+                       device="cuda",
+                       window_dtype: torch.dtype = torch.float32) -> Texture:
     """Upload an ``(H, W, 4)`` uint8 image as a texture (Image.fromFile
-    analog, image.zig:436-463): host decode, then one copy per table."""
+    analog, image.zig:436-463): host decode, then one copy per table.
+
+    ``window_dtype=torch.bfloat16`` (the JAX package's
+    ``RAYEATER_WIN_BF16=1``) stores the subtile sampler's window table in
+    bfloat16 (rounded to nearest even): half the bytes a window, at ~2^-9
+    relative texel error; the sampler then rounds its tap weights to
+    bfloat16 too and accumulates in float32."""
+    if window_dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"window_dtype {window_dtype} is not float32 or "
+                         "bfloat16")
     sampler = sampler or Sampler()
     rgba_u8 = np.asarray(rgba_u8)
     f = rgba_u8.astype(np.float32) / 255.0
@@ -265,7 +275,7 @@ def texture_from_array(rgba_u8: np.ndarray, sampler: Sampler | None = None,
             if _windows_fit(*rgba_u8.shape[:2], sampler.address_mode):
                 wt, win_dims = _build_win_table(lvl_u8s, srgb,
                                                 sampler.address_mode)
-                win_table = put(wt)
+                win_table = put(wt).to(window_dtype)
     return Texture(data=put(f), sampler=sampler, packed=packed,
                    packed_srgb=bool(srgb), mip_table=mip_table,
                    mip_dims=mip_dims, win_table=win_table,
@@ -274,9 +284,11 @@ def texture_from_array(rgba_u8: np.ndarray, sampler: Sampler | None = None,
 
 def texture_from_file(path: str, sampler: Sampler | None = None,
                       srgb: bool = True, pack: bool = True,
-                      device="cuda") -> Texture:
+                      device="cuda",
+                      window_dtype: torch.dtype = torch.float32) -> Texture:
     """``TexImage.fromFile`` (texture.zig:52-74): decode the image file
     with :func:`load_image` and upload it as :func:`texture_from_array`
     does."""
     return texture_from_array(load_image(path), sampler, srgb=srgb,
-                              pack=pack, device=device)
+                              pack=pack, device=device,
+                              window_dtype=window_dtype)

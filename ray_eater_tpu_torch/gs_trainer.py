@@ -2,38 +2,50 @@
 ``samples/gs_trainer.py``).
 
     python3 -m ray_eater_tpu_torch.gs_trainer [--splats N] [--steps N]
-        [--width W] [--height H] [--path pallas|jnp] [--device cuda|cpu]
+        [--width W] [--height H] [--path pallas|jnp] [--out DIR]
+        [--device cuda|cpu]
+    torchrun --nproc-per-node D -m ray_eater_tpu_torch.gs_trainer --dp
+        [--device cuda|cpu] ...
     python3 -m ray_eater_tpu_torch.gs_trainer --adc [--splats N]
         [--capacity C] [--views V] [--densify-every K] [--steps N]
+        [--save-ply PATH]
 
 The plain run renders a target from a hidden ``random_cloud(seed=42)``
 through the differentiable path, then fits a ``random_cloud(seed=7)`` to it
 with Adam from one camera. ``--adc`` reconstructs a hidden scene from a
 ring of views, starting from a small random cloud and growing it with the
-INRIA adaptive density control loop, and scores two held-out views.
-``--path pallas`` (the default above 4096 splats) trains through the
-kernels (K4 forward, K5 backward on CUDA); ``jnp`` through the plain
-``render_diff``. Runs on CUDA unless ``--device cpu``. Images are not
-written (``samples/gs_trainer.py`` writes PNGs).
+INRIA adaptive density control loop, and scores two held-out views;
+``--save-ply`` writes its live splats as a 3DGS PLY. ``--path pallas``
+(the default above 4096 splats) trains through the kernels (K4 forward,
+K5 backward on CUDA); ``jnp`` through the plain ``render_diff``. ``--dp``
+trains the plain run data-parallel over the launcher's ranks
+(``make_train_step_dp`` through ``render_diff``; NCCL on CUDA, one card a
+rank, gloo with ``--device cpu``); only rank 0 prints and writes files.
+Runs on CUDA unless ``--device cpu``. The first view's target and fitted
+images go to ``--out`` as ``target.png`` and ``fitted.png``.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
 
 from . import rmath
-from .models.gaussians import random_cloud
+from .io.image import save_png, to_srgb_u8
+from .models.gaussians import GaussianCloud, random_cloud, save_ply
 from .models.gs_densify import (densify_and_prune, init_densify_state,
                                 make_train_window_adc, pad_params,
                                 reset_new_slots, reset_opacity)
-from .models.gs_training import (adam, make_train_step,
-                                 make_train_step_pallas, params_from_cloud,
-                                 render_diff, render_diff_pallas)
+from .models.gs_training import (adam, cloud_from_params, make_train_step,
+                                 make_train_step_dp, make_train_step_pallas,
+                                 params_from_cloud, render_diff,
+                                 render_diff_pallas)
 
 
 class _Clock:
@@ -117,14 +129,25 @@ def _psnr(mse: float) -> float:
 def train(args) -> dict:
     """The plain run: one camera, a fixed splat count. Returns the losses
     (the first is the warm-up step's), ms/step over the timed steps (all
-    but the warm-up) and the peak device memory."""
+    but the warm-up), the peak device memory and the (target, fitted)
+    images. With ``args.dp`` the steps are data-parallel over the
+    launcher's ranks (``make_train_step_dp``, the ``render_diff`` path)."""
+    mesh = None
+    if args.dp:
+        from .parallel import make_device_mesh
+        mesh = make_device_mesh(device=args.device)
     dev = torch.device(args.device)
-    path = args.path or ("pallas" if args.splats > 4096 else "jnp")
+    path = ("jnp" if mesh is not None
+            else args.path or ("pallas" if args.splats > 4096 else "jnp"))
     view, proj, target, params = train_setup(args.splats, args.width,
                                              args.height, dev, path)
     opt = adam(params, args.lr)
-    step = (make_train_step_pallas(opt, view, proj) if path == "pallas"
-            else make_train_step(opt, view, proj))
+    if mesh is not None:
+        step = make_train_step_dp(opt, view, proj, mesh)
+    elif path == "pallas":
+        step = make_train_step_pallas(opt, view, proj)
+    else:
+        step = make_train_step(opt, view, proj)
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
     losses = [step(params, target)]          # warm-up
@@ -133,10 +156,14 @@ def train(args) -> dict:
     for _ in range(1, args.steps):
         losses.append(step(params, target))
     ms = clock.stop_ms() / max(args.steps - 1, 1)
-    return dict(path=path, losses=[float(x) for x in losses], ms_per_step=ms,
+    with torch.no_grad():
+        fitted = _renderer(path)(params, view, proj, args.width, args.height)
+    return dict(path="dp" if mesh is not None else path,
+                rank=0 if mesh is None else mesh.get_rank(),
+                losses=[float(x) for x in losses], ms_per_step=ms,
                 peak_bytes=(torch.cuda.max_memory_allocated(dev)
                             if dev.type == "cuda" else None),
-                params=params)
+                params=params, images=(target, fitted))
 
 
 def train_adc(args) -> dict:
@@ -144,7 +171,9 @@ def train_adc(args) -> dict:
     density control loop: clone/split high-gradient splats, prune
     transparent ones, reset opacities. Returns steps/s over the windows
     after the first, the live counts, every densify event's stats, the
-    window losses and the PSNR on the training and held-out views."""
+    window losses, the PSNR on the training and held-out views, the first
+    view's (target, fitted) images, and the parameters with their
+    ``live`` mask. ``args.save_ply`` writes the live splats as a PLY."""
     dev = torch.device(args.device)
     w, h = args.width, args.height
     cap = args.capacity or 4 * args.splats
@@ -225,11 +254,19 @@ def train_adc(args) -> dict:
             for v, t in zip(vlist, tlist):
                 img = render(params, v, proj, w, h)
                 out.append(_psnr(float(torch.mean((img - t) ** 2))))
+        fitted = render(params, views[0], proj, w, h)
+    if args.save_ply:
+        # the live splats, activated, as a 3DGS PLY (load_ply reads it)
+        full = cloud_from_params(params)
+        save_ply(args.save_ply, GaussianCloud(*(
+            getattr(full, k).detach()[dstate.live]
+            for k in ("means", "scales", "quats", "opacities", "colors"))))
     return dict(path=path, n0=n0, capacity=cap,
                 n_live=int(dstate.live.sum()), events=events,
                 losses=[float(x) for x in losses],
                 steps_per_s=(args.steps - timed_from) / max(ms * 1e-3, 1e-9),
-                psnr=psnrs, heldout_psnr=held_psnrs)
+                psnr=psnrs, heldout_psnr=held_psnrs,
+                images=(targets[0], fitted), params=params, live=dstate.live)
 
 
 def parse_args(argv=None):
@@ -251,6 +288,15 @@ def parse_args(argv=None):
     ap.add_argument("--views", type=int, default=6,
                     help="--adc camera count around the scene")
     ap.add_argument("--densify-every", type=int, default=100)
+    ap.add_argument("--dp", action="store_true",
+                    help="data-parallel over the launcher's ranks (torchrun; "
+                         "NCCL on CUDA, gloo with --device cpu)")
+    ap.add_argument("--save-ply", default=None,
+                    help="--adc: write the reconstructed live splats as a "
+                         "3DGS PLY")
+    ap.add_argument("--out", default=os.path.join(tempfile.gettempdir(),
+                                                  "rayeater_train"),
+                    help="directory of target.png and fitted.png")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
     if args.steps < 1:
@@ -258,29 +304,56 @@ def parse_args(argv=None):
     return args
 
 
+def _save_images(out: str, images) -> str:
+    """``target.png`` and ``fitted.png`` (sRGB) in ``out``; returns the
+    fitted image's path."""
+    os.makedirs(out, exist_ok=True)
+    for name, img in zip(("target.png", "fitted.png"), images):
+        save_png(os.path.join(out, name), to_srgb_u8(img))
+    return os.path.join(out, "fitted.png")
+
+
+def _where(device: str) -> str:
+    """The card's name, or "cpu" (asked after training: under --dp the
+    process group picks each rank's card first)."""
+    if torch.device(device).type == "cuda":
+        return torch.cuda.get_device_name(device)
+    return "cpu"
+
+
 def main(argv=None) -> int:
     args = parse_args(argv)
-    dev = torch.device(args.device)
-    where = (torch.cuda.get_device_name(dev) if dev.type == "cuda"
-             else "cpu")
     if args.adc:
         r = train_adc(args)
+        png = _save_images(args.out, r["images"])
         print(f"gs_trainer[adc/{r['path']}]: {args.steps} steps, {r['n0']} "
               f"-> {r['n_live']} live splats (cap {r['capacity']}), "
-              f"{args.views} views {args.width}x{args.height} on {where}, "
+              f"{args.views} views {args.width}x{args.height} on "
+              f"{_where(args.device)}, "
               f"{r['steps_per_s']:.2f} steps/s after the first window; "
               f"mean PSNR {np.mean(r['psnr']):.2f} dB (min "
               f"{min(r['psnr']):.2f}), held-out "
               f"{np.mean(r['heldout_psnr']):.2f} dB; densify events "
-              f"{r['events']}")
+              f"{r['events']} (saved {png}"
+              + (f", {args.save_ply}" if args.save_ply else "") + ")")
         return 0
-    r = train(args)
+    import torch.distributed as dist
+    owned = args.dp and not dist.is_initialized()
+    try:
+        r = train(args)
+    finally:
+        if owned and dist.is_initialized():
+            dist.destroy_process_group()
+    if args.dp and r["rank"] != 0:
+        return 0
+    png = _save_images(args.out, r["images"])
     peak = ("" if r["peak_bytes"] is None
             else f", peak memory {r['peak_bytes'] / 2**30:.3f} GiB")
     print(f"gs_trainer[{r['path']}]: {args.steps} steps {args.splats} "
-          f"splats {args.width}x{args.height} on {where}, "
+          f"splats {args.width}x{args.height} on {_where(args.device)}, "
           f"{r['ms_per_step']:.3f} ms/step after the warm-up step; loss "
-          f"{r['losses'][0]:.6f} -> {r['losses'][-1]:.6f}{peak}")
+          f"{r['losses'][0]:.6f} -> {r['losses'][-1]:.6f}{peak} (saved "
+          f"{png})")
     return 0
 
 

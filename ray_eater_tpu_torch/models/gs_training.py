@@ -16,8 +16,10 @@ unconstrained. Two differentiable renderers:
 
 optax's ``adam(lr)`` is :func:`adam`: ``torch.optim.Adam`` with the same
 betas and epsilon (the same update rule). A step updates the parameters in
-place through the optimizer, which holds them. ``make_train_step_dp``
-(multi-device) is not ported yet.
+place through the optimizer, which holds them. :func:`make_train_step_dp`
+is the data-parallel step over a ``torch.distributed`` device mesh
+(``parallel.make_device_mesh``): each rank grades its band of the target's
+rows, and the loss and gradients are averaged over the mesh.
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ from typing import Mapping
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..ops.gs import _on, project_gaussians, render_gaussians_diff
 from .gaussians import GaussianCloud
@@ -92,10 +95,14 @@ def adam(params: GaussianParams, lr: float) -> torch.optim.Adam:
 
 def render_diff(params: GaussianParams, view, proj, width: int, height: int,
                 background=(0.0, 0.0, 0.0), row_chunk: int = 16,
+                y_offset: float = 0.0, full_height: int | None = None,
                 mean2d_offset=None) -> torch.Tensor:
     """Differentiable render → (height, width, 3), plain tensors.
 
-    Splats are depth-ordered with a straight-through sort (the order takes no
+    ``y_offset`` shifts the pixel grid and ``full_height`` is the whole
+    image's height: the rows [y_offset, y_offset + height) of a
+    ``full_height`` image (the data-parallel step's band). Splats are
+    depth-ordered with a straight-through sort (the order takes no
     gradient; values flow through a gather). The 1/255 alpha floor is a
     straight-through mask, as in the compositor. ``mean2d_offset`` (N, 2)
     as in :func:`ops.gs.render_gaussians_diff`."""
@@ -105,7 +112,7 @@ def render_diff(params: GaussianParams, view, proj, width: int, height: int,
                            cloud.opacities, cloud.colors,
                            _on(view, dev, "view").to(_F32),
                            _on(proj, dev, "proj").to(_F32),
-                           width, height)
+                           width, full_height or height)
     if mean2d_offset is not None:
         ps = ps._replace(mean2d=ps.mean2d + mean2d_offset)
     order = torch.argsort(ps.depth.detach(), stable=True)
@@ -120,7 +127,7 @@ def render_diff(params: GaussianParams, view, proj, width: int, height: int,
     bands = []
     for y0 in range(0, height, row_chunk):
         ys = (float(y0) + torch.arange(row_chunk, dtype=_F32, device=dev)
-              + 0.5)
+              + 0.5 + y_offset)
         dx = xs[None, :, None] - mx[None, None, :]         # (1, W, N)
         dy = ys[:, None, None] - my[None, None, :]         # (R, 1, N)
         power = -0.5 * (ca * dx * dx + cc * dy * dy) - cb * dx * dy
@@ -150,9 +157,11 @@ def render_diff_pallas(params: GaussianParams, view, proj, width: int,
         mean2d_offset=mean2d_offset)
 
 
-def l2_loss(params, view, proj, target, background=(0.0, 0.0, 0.0)):
+def l2_loss(params, view, proj, target, background=(0.0, 0.0, 0.0),
+            y_offset: float = 0.0, full_height: int | None = None):
     h, w = target.shape[0], target.shape[1]
-    img = render_diff(params, view, proj, w, h, background)
+    img = render_diff(params, view, proj, w, h, background,
+                      y_offset=y_offset, full_height=full_height)
     return torch.mean((img - target) ** 2)
 
 
@@ -185,3 +194,41 @@ def make_train_step_pallas(optimizer, view, proj,
                                  max_splats_per_tile)
         return torch.mean((img - target) ** 2)
     return _step(optimizer, loss_fn)
+
+
+def make_train_step_dp(optimizer, view, proj, mesh,
+                       background=(0.0, 0.0, 0.0)):
+    """Data-parallel training step over the 1-D device ``mesh``
+    (``parallel.make_device_mesh``): ``step(params, target) -> loss``, as
+    :func:`make_train_step`. Every rank passes the same parameters and the
+    whole (replicated) target; rank r grades rows [r·H/D, (r+1)·H/D) with
+    :func:`render_diff`, the band's loss and gradients are averaged over
+    the mesh (``all_reduce`` SUM, then a division by D as a tensor), and
+    every rank's optimizer takes the same step. Raises if the target's
+    height is not divisible by D."""
+    group, d, r = mesh.get_group(), mesh.size(), mesh.get_local_rank()
+
+    def step(params: GaussianParams, target) -> torch.Tensor:
+        h = target.shape[0]
+        if h % d:
+            raise ValueError(f"target height {h} not divisible by mesh {d}")
+        band = h // d
+        optimizer.zero_grad(set_to_none=True)
+        loss = l2_loss(params, view, proj, target[r * band:(r + 1) * band],
+                       background, y_offset=float(r * band),
+                       full_height=h)
+        loss.backward()
+        # one all_reduce of the loss and every gradient, flattened
+        ts = params.tensors()
+        flat = torch.cat([loss.detach().reshape(1)]
+                         + [t.grad.reshape(-1) for t in ts])
+        dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=group)
+        flat = flat / torch.full((), float(d), dtype=_F32,
+                                 device=flat.device)
+        off = 1
+        for t in ts:
+            t.grad.copy_(flat[off:off + t.numel()].view_as(t.grad))
+            off += t.numel()
+        optimizer.step()
+        return flat[0]
+    return step

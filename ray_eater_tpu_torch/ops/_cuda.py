@@ -148,6 +148,8 @@ def load(csrc: Path = _CSRC) -> None:
     so.shade_fetch.restype = i
     so.subtile_sample.argtypes = [p] * 13 + [i, p]
     so.subtile_sample.restype = i
+    so.subtile_sample_bf16.argtypes = [p] * 13 + [i, p]
+    so.subtile_sample_bf16.restype = i
     so.splat_mask.argtypes = [p, i, i, i, i, i, i, p, p]
     so.splat_mask.restype = i
     _lib = so

@@ -362,15 +362,19 @@ def _make_records(ps: ProjectedSplats) -> torch.Tensor:
 # binning
 # ---------------------------------------------------------------------------
 
-def _quantize_depth(depth, valid, db: int):
-    """Depth → int32 in [0, 2^db - 1] over the frame's valid [dmin, dmax].
+def _quantize_depth(depth, valid, db: int, depth_range=None):
+    """Depth → int32 in [0, 2^db - 1] over the frame's valid [dmin, dmax]
+    (or over ``depth_range`` = (dmin, dmax), 0-d tensors, when given).
     ``db`` ≤ 22 keeps the f32 product integer-exact (2^22 < 2^24), so the
     deepest splat never rounds up into the tile bits."""
     qmax = (1 << db) - 1
     dfin = torch.where(valid, depth, math.inf)
-    dmin = torch.min(dfin)
-    dmax = torch.max(torch.where(valid, depth, -math.inf))
-    dmin = torch.where(torch.isfinite(dmin), dmin, 0.0)
+    if depth_range is None:
+        dmin = torch.min(dfin)
+        dmax = torch.max(torch.where(valid, depth, -math.inf))
+        dmin = torch.where(torch.isfinite(dmin), dmin, 0.0)
+    else:
+        dmin, dmax = depth_range
     span = torch.clamp(dmax - dmin, min=1e-9)
     qd = torch.clamp((dfin - dmin) / span * qmax, 0.0, float(qmax))
     qd = torch.clamp(qd.to(_I32), 0, qmax)
@@ -636,7 +640,8 @@ def _bin_splats(mx, my, rad, valid, depth, ntx: int, nty: int,
                 big_cap: int | None = None, mid_cap: int | None = None,
                 mid_lo_cap: int | None = None,
                 corner_cap: int | None = None,
-                tail_decim: int | None = None, tail=None) -> Binned:
+                tail_decim: int | None = None, tail=None,
+                depth_range=None) -> Binned:
     """Per-tile front-to-back pair lists from ONE sort of the combined
     ``tile << db | qdepth`` keys.
 
@@ -664,6 +669,9 @@ def _bin_splats(mx, my, rad, valid, depth, ntx: int, nty: int,
       pairs per tile grants each tile the next pairs of its sorted list
       beyond the head grant, granted and snapped the same way, in its own
       aligned pack. ``overflow`` then counts the pairs behind the tail.
+    * ``depth_range`` (dmin, dmax): quantise the depth keys over it
+      instead of the rows' own valid range (a subset of a frame's splats
+      then gets the frame's keys, so its ties break as the frame's do).
     * slab proxy (``tail=(alpha_full (N,), colors (N, 3))``): each key
       carries its splat's :func:`_pack_tail_aux` (split among the splat's
       emitted tiles of its channel) through the sort, and each tile's
@@ -681,7 +689,7 @@ def _bin_splats(mx, my, rad, valid, depth, ntx: int, nty: int,
 
     tile_bits = max(ntiles.bit_length(), 1)   # ids 0..ntiles-1 + sentinel
     db = min(31 - tile_bits, 22)
-    qd = _quantize_depth(depth, valid, db)
+    qd = _quantize_depth(depth, valid, db, depth_range)
 
     # level-1 fan: splats whose per-axis extents fit the KX×ky span (all
     # valid splats without side channels: projection clamped their radii)
@@ -1438,6 +1446,36 @@ class FrameLayout(NamedTuple):
     records_tl: torch.Tensor | None = None    # packed tail records
 
 
+def _exact_pair_cap(n: int, ntiles: int, ky: int, tile_w: int, corner_cap,
+                    big_cap, mid_cap, mid_lo_cap) -> int:
+    """The most pairs ``n`` splats can emit over ``ntiles`` tiles through
+    the level-1 fan (or the 2-slot fan and the corner channel) and the
+    side channels' budgets, plus a chunk of slack a tile: exact mode's
+    pair cap before rounding."""
+    if corner_cap is not None and ky == 2 and KX == 2:
+        cap = n * 2 + corner_cap * KX * ky + ntiles * CHUNK
+    else:
+        cap = n * KX * ky + ntiles * CHUNK
+    if big_cap is not None:
+        cap += big_cap * _kx2(tile_w) * KY2
+        if mid_cap is not None:
+            cap += mid_cap * _kxm(tile_w) * KY_M
+            if mid_lo_cap is not None:
+                cap += mid_lo_cap * _kxml(tile_w) * KY_ML
+    return cap
+
+
+def _check_channels(max_splats_per_tile, big_splat_cap, mid_splat_cap,
+                    mid_lo_splat_cap, lod_tail_decim) -> None:
+    """Raise on side-channel and tail knobs that need another one."""
+    if mid_splat_cap is not None and big_splat_cap is None:
+        raise ValueError("mid_splat_cap requires big_splat_cap")
+    if mid_lo_splat_cap is not None and mid_splat_cap is None:
+        raise ValueError("mid_lo_splat_cap requires mid_splat_cap")
+    if lod_tail_decim is not None and max_splats_per_tile is None:
+        raise ValueError("lod_tail_decim requires max_splats_per_tile")
+
+
 def _on(x, dev, name: str) -> torch.Tensor:
     """``x`` as an f32/int tensor on the cloud's device: array-likes are
     placed there, a tensor on another device is refused."""
@@ -1473,16 +1511,9 @@ def _frame_layout(cloud, view, proj, width: int, height: int, *,
     ntx, nty = num_tiles(width, height, tile_w)
     n = cloud.num_splats
     ntiles = ntx * nty
-    if corner_cap is not None and ky == 2 and KX == 2:
-        exact_cap = n * 2 + corner_cap * KX * ky + ntiles * CHUNK
-    else:
-        exact_cap = n * KX * ky + ntiles * CHUNK
-    if big_splat_cap is not None:
-        exact_cap += big_splat_cap * _kx2(tile_w) * KY2
-        if mid_splat_cap is not None:
-            exact_cap += mid_splat_cap * _kxm(tile_w) * KY_M
-            if mid_lo_splat_cap is not None:
-                exact_cap += mid_lo_splat_cap * _kxml(tile_w) * KY_ML
+    exact_cap = _exact_pair_cap(n, ntiles, ky, tile_w, corner_cap,
+                                big_splat_cap, mid_splat_cap,
+                                mid_lo_splat_cap)
     if pairs_cap_factor is None:
         cap_pairs = exact_cap
     else:
@@ -1569,12 +1600,8 @@ def render_gaussians(cloud, view, proj, width: int, height: int,
     ``tile_exec`` (head rows composited before saturation, 0 for unvisited
     tiles), ``tile_kept``, ``tile_count`` and the head-based ``lossless``
     certificate."""
-    if mid_splat_cap is not None and big_splat_cap is None:
-        raise ValueError("mid_splat_cap requires big_splat_cap")
-    if mid_lo_splat_cap is not None and mid_splat_cap is None:
-        raise ValueError("mid_lo_splat_cap requires mid_splat_cap")
-    if lod_tail_decim is not None and max_splats_per_tile is None:
-        raise ValueError("lod_tail_decim requires max_splats_per_tile")
+    _check_channels(max_splats_per_tile, big_splat_cap, mid_splat_cap,
+                    mid_lo_splat_cap, lod_tail_decim)
     tail_d = _TAIL_D if lod_tail_d is None else lod_tail_d
     if cam_pos is not None and cloud.sh_rest is not None:
         cloud = dataclasses.replace(cloud,

@@ -960,28 +960,44 @@ def _vertex_stage(pipe: GraphicsPipeline, mesh_: Mesh, uniforms,
     return DrawSetup(setup, inv_w, z_tri, tri_vary)
 
 
-def _raster_draw(pipe: GraphicsPipeline, ds: DrawSetup, fb: Framebuffer):
+def _raster_draw(pipe: GraphicsPipeline, ds: DrawSetup, fb: Framebuffer,
+                 shade_fetch: bool = True):
     """The raster stage of a draw: [depth/key, winner id, λ0, λ1, feats]
-    and the corner depths ``z_tri`` the shade needs (or None)."""
+    and the corner depths ``z_tri`` the shade needs (or None). Binned
+    draws fetch the winners' features in K8; with ``shade_fetch=False``
+    they gather them per pixel from the feature table by winner id
+    instead, with K8's zeros where no triangle won, so the frame is the
+    same (the samplers' derivatives read uncovered neighbours too)."""
     state = pipe.state
     last_wins, less_equal, static_test = _depth_modes(state)
     zt = ds.z_tri if (last_wins and state.depth_write) else None
     n_tris = ds.inv_w.shape[0]
-    # binned draws fetch the winners' features in K8
-    feat_table = (_feature_table(ds.tri_vary, ds.inv_w, zt)
-                  if n_tris > _BIN_MIN_TRIS else None)
+    binned = n_tris > _BIN_MIN_TRIS
+    table = _feature_table(ds.tri_vary, ds.inv_w, zt) if binned else None
     out = _raster_call(ds.setup, fb.depth, fb.width, fb.height,
                        depth_test=state.depth_test, last_wins=last_wins,
                        less_equal=less_equal, static_test=static_test,
-                       n_tris=n_tris, feat_table=feat_table)
+                       n_tris=n_tris,
+                       feat_table=table if shade_fetch else None)
+    if binned and not shade_fetch:
+        tri = out[1]
+        rows = table[tri.clamp(min=0).reshape(-1).long()]
+        out[4] = torch.where((tri >= 0)[..., None],
+                             rows.reshape(*tri.shape, -1), 0.0)
     return out, zt
 
 
 def render_mesh(pipe: GraphicsPipeline, mesh_: Mesh, uniforms: Any,
-                resources: Any, fb: Framebuffer) -> Framebuffer:
+                resources: Any, fb: Framebuffer,
+                shade_fetch: bool = True) -> Framebuffer:
     """Draw one mesh through a graphics pipeline into ``fb`` (the
-    reference's bind-and-drawIndexed, basic_planes.zig:329-335)."""
+    reference's bind-and-drawIndexed, basic_planes.zig:329-335).
+    ``shade_fetch=False`` (the JAX package's ``RAYEATER_SHADE_FETCH=0``)
+    fetches a binned draw's winner features by a per-pixel row gather
+    instead of kernel K8; the frame is the same (see
+    :func:`_raster_draw`)."""
     ds = _vertex_stage(pipe, mesh_, uniforms, fb)
-    (gdepth, gtri, gl0, gl1, feats), zt = _raster_draw(pipe, ds, fb)
+    (gdepth, gtri, gl0, gl1, feats), zt = _raster_draw(pipe, ds, fb,
+                                                       shade_fetch)
     return _shade(pipe, fb, gdepth, gtri, gl0, gl1, ds.tri_vary, ds.inv_w,
                   resources, z_tri=zt, feats=feats)

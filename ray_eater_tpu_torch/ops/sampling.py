@@ -351,17 +351,25 @@ def _subtile_plain(w0i, w1i, ty0, fy0, tx0, fx0, ty1, fy1, tx1, fx1, frac,
                    win_table) -> torch.Tensor:
     """Plain version of K9: per pixel, the two bilinear taps read from the
     32x32 windows ``w0i``/``w1i`` at window-local (ty, tx), lerped by
-    ``frac``. Returns (ns, 4, 256) float32."""
+    ``frac``. With a bfloat16 ``win_table`` the x weights (1 - fx, fx) are
+    rounded to bfloat16 first (the JAX kernel's bf16 contraction) and the
+    sums run in float32. Returns (ns, 4, 256) float32."""
     flat = win_table.reshape(-1)
+    bf16 = win_table.dtype == torch.bfloat16
+
+    def weight(v):
+        return v.to(torch.bfloat16).to(_F32) if bf16 else v
 
     def tap(wid, ty, fy, tx, fx):
         base = (wid.long() * (_C * _WIN * _WIN))[:, None] + (
             ty.long() * _WIN + tx.long())
+        gx, wx = weight(1.0 - fx), weight(fx)
         out = []
         for c in range(_C):
             i = base + c * _WIN * _WIN
-            r0 = flat[i] * (1.0 - fx) + flat[i + 1] * fx
-            r1 = flat[i + _WIN] * (1.0 - fx) + flat[i + _WIN + 1] * fx
+            r0 = flat[i].to(_F32) * gx + flat[i + 1].to(_F32) * wx
+            r1 = (flat[i + _WIN].to(_F32) * gx
+                  + flat[i + _WIN + 1].to(_F32) * wx)
             out.append(r0 * (1.0 - fy) + r1 * fy)
         return out
 
@@ -382,7 +390,8 @@ def _k9_op(w0i: torch.Tensor, w1i: torch.Tensor, ty0: torch.Tensor,
            ty1: torch.Tensor, fy1: torch.Tensor, tx1: torch.Tensor,
            fx1: torch.Tensor, frac: torch.Tensor,
            win_table: torch.Tensor) -> torch.Tensor:
-    """K9's launch: (ns, 4, 256) f32."""
+    """K9's launch: (ns, 4, 256) f32; the float32 or the bfloat16
+    instantiation by the window table's dtype."""
     dev = _cuda.cuda_device(frac, "K9 subtile sampler")
     args = (w0i, w1i, ty0, fy0, tx0, fx0, ty1, fy1, tx1, fx1, frac,
             win_table)
@@ -396,11 +405,14 @@ def _k9_op(w0i: torch.Tensor, w1i: torch.Tensor, ty0: torch.Tensor,
                         ("tx1", tx1, _I32), ("fx1", fx1, _F32),
                         ("frac", frac, _F32)):
         _cuda.check_arg(t, name, dt, (ns, _SPIX), dev)
-    _cuda.check_arg(win_table, "win_table", _F32, (nwin, _C * _WIN, _WIN),
-                    dev)
+    bf16 = win_table.dtype == torch.bfloat16
+    _cuda.check_arg(win_table, "win_table", torch.bfloat16 if bf16 else _F32,
+                    (nwin, _C * _WIN, _WIN), dev)
     out = torch.empty((ns, _C, _SPIX), dtype=_F32, device=dev)
+    entry = (_cuda.lib().subtile_sample_bf16 if bf16
+             else _cuda.lib().subtile_sample)
     with torch.cuda.device(dev):
-        err = _cuda.lib().subtile_sample(
+        err = entry(
             *(t.data_ptr() for t in args), out.data_ptr(), ns,
             torch.cuda.current_stream(dev).cuda_stream)
     _cuda.check(err, "K9 subtile sampler")

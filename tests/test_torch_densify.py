@@ -256,3 +256,26 @@ def test_adc_window_cycles_views():
     assert bool(torch.isfinite(loss)) and float(loss) > 0
     assert not torch.equal(before, tp.means.detach())
     assert (st.grad_count[:4] <= 3).all() and (st.grad_count[4:] == 0).all()
+
+
+def test_gs_trainer_adc_save_ply(tmp_path):
+    """``gs_trainer --adc --save-ply``: the live splats, activated, read
+    back by ``load_ply`` within 1e-5 (the PLY stores logits and logs,
+    inverted in float32), and the first view's PNGs written to --out."""
+    from ray_eater_tpu_torch import gs_trainer
+    ply, out = tmp_path / "adc.ply", tmp_path / "out"
+    argv = ["--adc", "--device", "cpu", "--splats", "64", "--capacity",
+            "128", "--views", "2", "--width", "48", "--height", "32",
+            "--densify-every", "2", "--steps", "6", "--save-ply", str(ply),
+            "--out", str(out)]
+    r = gs_trainer.train_adc(gs_trainer.parse_args(argv))
+    live = r["live"]
+    want = ttrain.cloud_from_params(r["params"])
+    got = gaussians.load_ply(str(ply), device="cpu")
+    assert got.num_splats == int(live.sum()) == r["n_live"] > 0
+    for k in ("means", "scales", "quats", "opacities", "colors"):
+        np.testing.assert_allclose(getattr(got, k).numpy(),
+                                   getattr(want, k).detach()[live].numpy(),
+                                   atol=1e-5, rtol=1e-5, err_msg=k)
+    assert gs_trainer.main(argv) == 0
+    assert (out / "fitted.png").exists() and (out / "target.png").exists()

@@ -526,6 +526,78 @@ def test_k9_matches_plain():
     assert float((k - p).abs().max()) <= 1e-6
 
 
+def test_k9_bf16_matches_plain():
+    """K9's bfloat16-window instantiation against its plain version (x
+    weights rounded to bf16, f32 sums in the same order)."""
+    from ray_eater_tpu_torch import raster_scenes as rs
+    from ray_eater_tpu_torch.core.resources import Sampler, texture_from_array
+    from ray_eater_tpu_torch.ops import raster, sampling
+    dev = _cuda()
+    ds, pipe, fb = _raster_frame(dev)
+    (gd, gt, g0, g1, feats), zt = raster._raster_draw(pipe, ds, fb)
+    pv = raster._interpolate(gt, g0, g1, ds.tri_vary, ds.inv_w, zt, feats)
+    tex = texture_from_array(rs.mip_checker_u8(),
+                             Sampler(mipmap=True, max_anisotropy=4.0),
+                             srgb=False, device=dev,
+                             window_dtype=torch.bfloat16)
+    assert tex.win_table.dtype == torch.bfloat16
+    plan = sampling._subtile_plan(tex, pv.vary["uv"], pv.mask)
+    args = (plan.w0i, plan.w1i, *plan.planes, tex.win_table)
+    k = sampling._subtile_call(*args)
+    p = sampling._subtile_plain(*args)
+    assert k.dtype == torch.float32
+    assert float((k - p).abs().max()) <= 1e-6
+    f32 = sampling._subtile_call(*args[:-1], rs.mip_checker_texture(dev)
+                                 .win_table)
+    assert 0 < float((k - f32).abs().max()) < 2e-2
+
+
+def test_sharded_one_card_matches_single(scene, tmp_path):
+    """The sharded paths on a one-rank NCCL mesh: the band is the frame,
+    so each frame is the single-device one within JAX's bounds (LOD mean
+    5e-3, exact max 1e-4) and the raster within 2e-5 on all but 0.5% of
+    the pixels; every sharded path launches its kernels."""
+    import torch.distributed as dist
+    from ray_eater_tpu_torch import raster_scenes as rs
+    from ray_eater_tpu_torch.ops import _cuda as kernels
+    from ray_eater_tpu_torch.parallel import sharded
+    cloud, view, proj = scene
+    mesh = sharded.make_device_mesh(1, device="cuda",
+                                    init_method=f"file://{tmp_path / 'pg'}",
+                                    rank=0)
+    try:
+        assert dist.get_backend() == "nccl"
+        knobs = resolve_knobs("fog", cloud.num_splats, env={})
+        kw = render_kwargs(knobs, exact=False, interpret=False)
+        single, _ = gs.render_gaussians(cloud, view, proj, W, H, **kw)
+        kws = {k: v for k, v in kw.items()
+               if k not in ("pairs_cap_factor", "payload_sort")}
+        kernels.reset_launches()
+        for ex in ("all_gather", "ring"):
+            img, st = sharded.render_gaussians_sharded(
+                cloud, view, proj, W, H, mesh, splat_exchange=ex, **kws)
+            assert float((img - single).abs().mean()) <= 5e-3, ex
+        exact = gs.render_gaussians(
+            cloud, view, proj, W, H,
+            **render_kwargs(knobs, exact=True, interpret=False))
+        sliced = sharded.render_gaussians_depth_sliced(
+            cloud, view, proj, W, H, mesh, tile_w=knobs["tile_w"])
+        assert float((sliced - exact).abs().max()) <= 1e-4
+        sc = rs.scene("grid288", "cuda", W, H)
+        pipe, res = sc.passes[0]
+        want = sc.frame(0.4)
+        c, d = sharded.render_mesh_sharded(pipe, sc.mesh, sc.uniforms(0.4),
+                                           res, W, H, mesh)
+        off = ((c - want.color[:H, :W]).abs().amax(-1) > 2e-5)
+        assert float(off.float().mean()) <= 5e-3
+        counts = dict(kernels.launches)
+        for key in ("k1_project", "k2_composite", "k7_raster_binned",
+                    "k8_shade_fetch", "k9_subtile"):
+            assert counts[key] > 0, key
+    finally:
+        dist.destroy_process_group()
+
+
 def test_raster_frames_count_launches():
     from ray_eater_tpu_torch import basic_planes, multipass
     from ray_eater_tpu_torch import raster_scenes as rs

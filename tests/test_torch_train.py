@@ -373,6 +373,27 @@ def test_render_diff_matches_jax():
         assert np.abs(g - ref).max() <= REL * np.abs(ref).max(), k
 
 
+def test_render_diff_band_matches_jax():
+    """A band of rows (``y_offset``, ``full_height``), as the
+    data-parallel step grades it, against JAX's ``render_diff``."""
+    d = _train_cloud(seed=3, n=24)
+    view, proj = _jcam()
+    jp = jtrain.params_from_cloud(jgauss.gaussian_cloud(*(d[k]
+                                                          for k in FIELDS)))
+    band = RH // 2
+    want = np.asarray(jtrain.render_diff(jp, view, proj, RW, band,
+                                         y_offset=float(band),
+                                         full_height=RH))
+    tp = ttrain.params_from_numpy({k: np.asarray(getattr(jp, k))
+                                   for k in PFIELDS}, device="cpu")
+    v, p = np.asarray(view), np.asarray(proj)
+    got = ttrain.render_diff(tp, v, p, RW, band, y_offset=float(band),
+                             full_height=RH).detach().numpy()
+    assert np.abs(got - want).max() <= 1e-5
+    full = ttrain.render_diff(tp, v, p, RW, RH).detach().numpy()
+    assert np.abs(got - full[band:]).max() <= 1e-6
+
+
 def test_train_step_pallas_matches_optax():
     """One step's gradients and three steps' losses against the JAX step
     with optax Adam (lr 5e-3)."""
