@@ -74,6 +74,16 @@ kernel against its plain PyTorch version, and drives the port's main paths:
 * K9's bfloat16-window instantiation (``texture_from_array``'s
   ``window_dtype``) against its plain version on the grid10k frame,
   timed beside the float32 windows (logged, not in the kernels line);
+* the API phase: ``import ray_eater_tpu_torch as re`` resolves the 38
+  names of the JAX package's API; ``hello`` on the card; one fog frame (1M
+  splats, 1920x1080, the fog knobs) through ``re.render_gaussians`` on
+  ``re.random_cloud``, bit-equal to the fog cell's ``ops.gs`` frame (K1,
+  K2); ``basic_planes --save-every 20`` over 60 frames, frames 0, 20 and
+  40 u8-equal to a ``render_animation(keep="all")`` of the same step (K6);
+  ``compute_drawing --device-loop`` presenting the default run's frame
+  (K10, K6); ``psnr_report`` against its float64 oracles, each of its
+  three lines at least 40 dB and the figures on a ``{"psnr": {...}}``
+  line; the phase's seconds. Its launches go into the kernels line;
 * the multi-device phase: D = ``torch.cuda.device_count()`` ranks spawned
   with NCCL, one card each (``make_device_mesh``). Each rank renders fog
   (1M splats, 1920x1080, its temporal budget carried over 8 frames)
@@ -219,6 +229,21 @@ VIEWER_RESIZE = ((1280, 720), (1920, 1080))   # the resize round trip
 BAKED_FRAMES = 8         # frames of a baked program held to the unbaked
 
 # ---- the multi-device phase -------------------------------------------------
+#: the JAX package's public API (``ray_eater_tpu.__all__``), which the
+#: port's top level exports under the same names
+API_NAMES = (
+    "rmath", "Context", "ContextConfig", "Framebuffer", "Texture", "Sampler",
+    "Filter", "AddressMode", "Swapchain", "render_animation",
+    "GraphicsPipeline", "ComputePipeline", "RasterState", "CullMode",
+    "FrontFace", "CompareOp", "BlendMode", "shaders", "render_mesh", "Mesh",
+    "mesh", "two_planes", "fullscreen_quad", "clear", "create_framebuffer",
+    "texture_from_array", "texture_from_file", "render_gaussians",
+    "GaussianCloud", "gaussian_cloud", "random_cloud", "load_ply",
+    "save_ply", "eval_sh_colors", "load_obj", "RenderGraph", "FrameProgram",
+    "load_baked")
+API_OUT = "chiprun_out/api"
+API_SAVE_EVERY = 20      # basic_planes --save-every over RASTER_FRAMES frames
+API_MIN_PSNR = 40.0      # each line of psnr_report against its oracle
 MD_FRAMES = 8            # fog frames, the temporal budget carried
 MD_INRIA_FRAMES = 2
 MD_TRAIN_STEPS = 5       # make_train_step_dp steps at gs_trainer's defaults
@@ -1844,6 +1869,149 @@ def lod_tail_phase(torch, gs, fog):
     return min(with_tail), min(base)
 
 
+# ---- the API phase: the package's top level and the sample entry points ----
+
+def counted(torch, cuda, total: dict, fn):
+    """Run ``fn()`` with the launch counts zeroed just before it; add its
+    launches to ``total``. Returns (result, its launches)."""
+    cuda.reset_launches()
+    out = fn()
+    torch.cuda.synchronize()
+    got = dict(cuda.launches)
+    for k, v in got.items():
+        total[k] = total.get(k, 0) + v
+    return out, got
+
+
+def api_phase(torch, cuda, dev="cuda"):
+    """The package as a user imports it: the 38 names of the JAX package's
+    API on ``import ray_eater_tpu_torch as re``; ``hello``; one fog frame
+    (1M splats, 1920x1080, the fog cell's knobs and first budget) through
+    ``re.render_gaussians`` on ``re.random_cloud``, bit-equal to the fog
+    cell's frame through ``ops.gs.render_gaussians`` (K1, K2);
+    ``basic_planes --save-every 20`` over 60 frames, its PNGs u8-equal to
+    the frames of a ``render_animation(keep="all")`` of the same step
+    (K6); ``compute_drawing --device-loop`` presenting the default run's
+    frame (K10, K6); and ``psnr_report`` against its float64 oracles
+    (K6, K1, K2), each line at least ``API_MIN_PSNR`` dB. Launches are
+    counted around the user's calls only; the frames they are compared
+    with are rendered outside the counts. Returns (the launches, the
+    PSNR figures)."""
+    import contextlib
+    import io
+    t_phase = time.perf_counter()
+    import ray_eater_tpu_torch as re
+    from ray_eater_tpu_torch import basic_planes, hello, psnr_report
+    from ray_eater_tpu_torch import compute_drawing as cd
+    from ray_eater_tpu_torch import raster_scenes as rs
+    from ray_eater_tpu_torch.bench_knobs import (bench_cloud,
+                                                 flythrough_camera,
+                                                 render_kwargs,
+                                                 resolve_knobs)
+    from ray_eater_tpu_torch.core import animation
+    from ray_eater_tpu_torch.io.image import decode_png
+    from ray_eater_tpu_torch.models.gaussians import random_cloud
+    from ray_eater_tpu_torch.ops import gs
+    total: dict = {}
+    dev = torch.device(dev)
+    on = ["--device", dev.type]
+
+    missing = [n for n in API_NAMES
+               if n not in re.__all__ or not hasattr(re, n)]
+    log(f"API: import ray_eater_tpu_torch as re: {len(API_NAMES)} names, "
+        f"missing {missing}")
+    require(not missing, f"API names missing: {missing}")
+    require(re.render_gaussians is gs.render_gaussians
+            and re.random_cloud is random_cloud,
+            "re.render_gaussians / re.random_cloud are not the submodules'")
+    require(hello.main(on) == 0, "hello returned nonzero")
+
+    # fog frame: the cell's frame first (not counted), then the user's
+    knobs = resolve_knobs("fog", N_SPLATS, env={})
+    kw = render_kwargs(knobs, exact=False, interpret=False)
+    view, proj = flythrough_camera(0.0, W, H, device=dev)
+    budget = (gs.initial_lod_budget(W, H, knobs["tile_w"],
+                                    knobs["max_splats_per_tile"], dev)
+              if knobs["temporal"] else None)
+    cloud = bench_cloud("fog", N_SPLATS, dev)
+    want, _ = gs.render_gaussians(cloud, view, proj, W, H,
+                                  lod_budget=budget, **kw)
+    del cloud
+    cloud = re.random_cloud(N_SPLATS, seed=1, extent=1.0,
+                            scale_range=(0.004, 0.02), device=dev)
+    (got, _), fog = counted(torch, cuda, total, lambda: re.render_gaussians(
+        cloud, view, proj, W, H, lod_budget=budget, **kw))
+    equal = torch.equal(got, want)
+    log(f"API fog frame {N_SPLATS} splats {W}x{H} through re.render_gaussians"
+        f": bit-equal to ops.gs.render_gaussians's {equal}, finite "
+        f"{bool(torch.isfinite(got).all())}; launches {fog}")
+    require(equal, "re.render_gaussians frame differs from the fog cell's")
+    require(fog["k1_project"] > 0 and fog["k2_composite"] > 0,
+            f"API fog frame launched {fog}")
+    del cloud, got, want
+    torch.cuda.empty_cache()
+
+    # basic_planes --save-every
+    a = basic_planes.parse_args(
+        ["--frames", str(RASTER_FRAMES), "--save-every", str(API_SAVE_EVERY),
+         "--out", f"{API_OUT}/basic_planes", *on])
+    r, bp = counted(torch, cuda, total, lambda: basic_planes.run(a))
+    require_replayed("basic_planes --save-every", bp, r)
+    frame = rs.scene("basic_planes", dev, a.width, a.height,
+                     texture=basic_planes.load_texture(dev)).frame
+    frames = animation.render_animation(frame, RASTER_FRAMES, keep="all",
+                                        device=dev).cpu().numpy()
+    animation.release(frame)
+    want_saved = list(range(0, RASTER_FRAMES, API_SAVE_EVERY))
+    differ = {}
+    for i, path in r["saved"].items():
+        with open(path, "rb") as f:
+            differ[i] = int((decode_png(f.read()) != frames[i]).any(-1).sum())
+    log(f"API basic_planes --save-every {API_SAVE_EVERY} [{r['path']}]: "
+        f"saved frames {sorted(r['saved'])}, pixels differing from "
+        f"render_animation's frames {differ}; launches {bp}")
+    require(sorted(r["saved"]) == want_saved and not any(differ.values()),
+            f"basic_planes --save-every: saved {sorted(r['saved'])}, "
+            f"differing pixels {differ}")
+
+    # compute_drawing --device-loop against the default run (not counted)
+    default = cd.run(cd.parse_args(["--frames", str(RASTER_FRAMES), "--out",
+                                    f"{API_OUT}/compute_drawing_default",
+                                    *on]))
+    a = cd.parse_args(["--device-loop", "--frames", str(RASTER_FRAMES),
+                       "--out", f"{API_OUT}/compute_drawing", *on])
+    r, drawing = counted(torch, cuda, total, lambda: cd.run(a))
+    equal = torch.equal(r["u8"], default["u8"])
+    log(f"API compute_drawing --device-loop [{r['path']}]: presented frame "
+        f"equal to the default run's {equal}; launches {drawing}")
+    require(equal, "compute_drawing --device-loop differs from the default")
+    require(drawing["k10_splat"] == 1, f"compute_drawing --device-loop "
+            f"launched K10 {drawing['k10_splat']} times")
+    require_replayed("compute_drawing --device-loop", drawing, r)
+    del default, r
+
+    # psnr_report against the float64 oracles
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc, psnr = counted(torch, cuda, total,
+                           lambda: psnr_report.main(on))
+    lines = buf.getvalue().strip().splitlines()
+    for line in lines[:-1]:
+        log(f"API {line}")
+    figures = json.loads(lines[-1])["psnr"]
+    log(f"API psnr_report launches {psnr}")
+    print(json.dumps({"psnr": figures}), flush=True)
+    require(rc == 0 and len(figures) == 3, "psnr_report failed")
+    require(all(x >= API_MIN_PSNR for x in figures.values()),
+            f"psnr_report under {API_MIN_PSNR} dB: {figures}")
+    require(all(psnr[k] > 0 for k in ("k1_project", "k2_composite",
+                                      "k6_raster")),
+            f"psnr_report launched {psnr}")
+    log(f"API phase: {time.perf_counter() - t_phase:.1f} s; launches "
+        f"{total}")
+    return total, figures
+
+
 def sharded_kwargs(kw: dict) -> dict:
     """The ``render_kwargs`` that ``render_gaussians_sharded`` takes (the
     JAX function's keywords: no ``pairs_cap_factor``, no
@@ -2391,6 +2559,10 @@ def run() -> int:
     anims.append(anim)
     torch.cuda.empty_cache()
 
+    # ---- the API phase: the package's top level and entry points --------
+    api_launches, _ = api_phase(torch, cuda)
+    torch.cuda.empty_cache()
+
     # ---- multi-device: sharded K1, K2, K3, K7, K8, K9 on each rank -------
     md_launches, anim, _ = multidevice_phase(torch)
     if anim is not None:
@@ -2408,7 +2580,7 @@ def run() -> int:
 
     paths = (fog_launches, inria_launches, train_launches, adc_launches,
              *raster_launches.values(), drawing_launches, sh_launches,
-             md_launches)
+             api_launches, md_launches)
     for d, key in ((k1, "k1_project"), (k2, "k2_composite"),
                    (k3, "k3_composite_tail"), (k4, "k4_composite_ckpt"),
                    (k5, "k5_composite_bwd"), (k6, "k6_raster"),

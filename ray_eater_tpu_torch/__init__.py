@@ -24,6 +24,47 @@ Nothing here imports JAX or ``ray_eater_tpu``. Entry points run on
 ``"cuda"`` unless the caller passes CPU tensors or ``device="cpu"``; on the
 CPU each kernel wrapper runs its plain PyTorch version, on a CUDA tensor it
 launches the kernel or raises.
+
+The top level exports the JAX package's API under the same names
+(``__all__``), so ``import ray_eater_tpu_torch as re`` reads as the
+reference's samples do: ``re.Context``, ``re.create_framebuffer``,
+``re.render_mesh``, ``re.render_gaussians``, ``re.two_planes``,
+``re.random_cloud``, ``re.render_animation``, ``re.RenderGraph``,
+``re.load_baked`` and the rest. Importing it builds and loads no kernel
+(the library builds at a kernel's first launch, ``ops._cuda``) and
+imports no ``parallel``: multi-device work imports
+``ray_eater_tpu_torch.parallel`` itself, as in the JAX package.
 """
 
+from . import rmath
+from .core.context import Context, ContextConfig
+from .core.resources import (AddressMode, Filter, Framebuffer, Sampler,
+                             Texture, clear, create_framebuffer,
+                             texture_from_array, texture_from_file)
+from .core.swapchain import Swapchain
+from .core.animation import render_animation
+from .core.pipeline import (BlendMode, CompareOp, ComputePipeline, CullMode,
+                            FrontFace, GraphicsPipeline, RasterState)
+from .core import shaders
+from .ops.raster import render_mesh
+from .ops.gs import render_gaussians
+from .models.mesh import Mesh, fullscreen_quad, mesh, two_planes
+from .models.gaussians import (GaussianCloud, eval_sh_colors, gaussian_cloud,
+                               load_ply, random_cloud, save_ply)
+from .io.obj import load_obj
+from .graph.render_graph import FrameProgram, RenderGraph, load_baked
+
 __version__ = "0.1.0"
+
+__all__ = [
+    "rmath", "Context", "ContextConfig", "Framebuffer", "Texture", "Sampler",
+    "Filter", "AddressMode", "Swapchain", "render_animation",
+    "GraphicsPipeline",
+    "ComputePipeline", "RasterState", "CullMode", "FrontFace", "CompareOp",
+    "BlendMode", "shaders", "render_mesh", "Mesh", "mesh", "two_planes",
+    "fullscreen_quad", "clear", "create_framebuffer", "texture_from_array",
+    "texture_from_file", "render_gaussians", "GaussianCloud",
+    "gaussian_cloud", "random_cloud", "load_ply", "save_ply",
+    "eval_sh_colors", "load_obj", "RenderGraph", "FrameProgram",
+    "load_baked",
+]

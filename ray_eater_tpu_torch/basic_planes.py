@@ -11,11 +11,14 @@ variable, then the samples' procedural checkerboard. By default the
 ``render_animation`` (on a CUDA device: one captured frame step, replayed
 a frame at a time); ``--host-loop`` renders each frame eagerly and
 presents it through the ``Swapchain`` ring (``--no-present``: only the
-last). The last frame goes to ``OUT/frame_last.png``.
+last). The last frame goes to ``OUT/frame_last.png``; ``--save-every N``
+also writes every N-th frame i to ``OUT/frame_{i:04d}.png`` (the device
+loop keeps all frames; the host loop saves every N-th presented frame),
+after the timed frames.
 
     python -m ray_eater_tpu_torch.basic_planes [--frames 60]
         [--width 900 --height 600] [--host-loop [--no-present]]
-        [--out DIR] [--device cuda|cpu]
+        [--save-every N] [--out DIR] [--device cuda|cpu]
 """
 
 from __future__ import annotations
@@ -60,10 +63,15 @@ def parse_args(argv=None):
                          "the swapchain ring instead of the device loop")
     ap.add_argument("--no-present", action="store_true",
                     help="with --host-loop: present only the last frame")
+    ap.add_argument("--save-every", type=int, default=0,
+                    help="save every Nth frame (0 = last frame only)")
     ap.add_argument("--out", default=os.path.join(tempfile.gettempdir(),
                                                   "rayeater_basic_planes"))
     ap.add_argument("--device", default="cuda")
-    return ap.parse_args(argv)
+    args = ap.parse_args(argv)
+    if args.save_every < 0:
+        ap.error("--save-every must be 0 or more")
+    return args
 
 
 def run(args, on_image=None) -> dict:
@@ -71,17 +79,40 @@ def run(args, on_image=None) -> dict:
     :func:`raster_scenes.device_loop`'s or :func:`raster_scenes.host_loop`'s
     record (``path`` names it; ``on_image`` gets each frame the host loop
     presents) with "frames" (the count), "last" (the last u8 frame, a
-    numpy array) and "png"."""
+    numpy array), "png" and "saved" (the ``--save-every`` PNGs by frame
+    index)."""
     sc = scene("basic_planes", args.device, args.width, args.height,
                texture=load_texture(args.device))
+    every = args.save_every
+    keep = {}     # frame index -> u8 frame, written after the timed frames
     if args.host_loop:
+        count = 0
+
+        def presented(img):
+            # the ring presents the frames in order; with --no-present only
+            # the last one is presented, and nothing is saved
+            nonlocal count
+            if every and not args.no_present and count % every == 0:
+                keep[count] = img
+            count += 1
+            if on_image is not None:
+                on_image(img)
+
         r = host_loop(sc.frame, args.frames, args.device, sc.width,
                       sc.height, present=not args.no_present,
-                      on_image=on_image)
+                      on_image=presented)
     else:
         r = device_loop(sc.frame, args.frames, args.device)
-        r["last"] = r.pop("frames")[-1].cpu().numpy()
+        frames = r.pop("frames")
+        if every:
+            keep = {i: frames[i].cpu().numpy()
+                    for i in range(0, args.frames, every)}
+        r["last"] = frames[-1].cpu().numpy()
     os.makedirs(args.out, exist_ok=True)
+    r["saved"] = {}
+    for i, img in keep.items():
+        r["saved"][i] = os.path.join(args.out, f"frame_{i:04d}.png")
+        save_png(r["saved"][i], img)
     r["png"] = os.path.join(args.out, "frame_last.png")
     save_png(r["png"], r["last"])
     r["frames"] = args.frames

@@ -9,12 +9,14 @@ a fullscreen quad (render_quad.zig:116-127) through ``render_mesh``
 ``--frames`` frames at t = i/60 run as one animation through
 ``render_animation`` keeping the last frame (on a CUDA device: one
 captured frame step, replayed a frame at a time); ``--host-loop`` renders
-each frame eagerly and presents it through the ``Swapchain`` ring. Frames
-are encoded without sRGB, as the sample presents them; the last one goes
-to ``OUT/frame_last.png``.
+each frame eagerly and presents it through the ``Swapchain`` ring
+(``--device-loop``, the JAX sample's flag, names the default path and is
+refused together with ``--host-loop``). Frames are encoded without sRGB,
+as the sample presents them; the last one goes to
+``OUT/frame_last.png``.
 
     python -m ray_eater_tpu_torch.compute_drawing [--frames 60] [--out DIR]
-        [--seed 0] [--host-loop] [--device cuda|cpu]
+        [--seed 0] [--device-loop | --host-loop] [--device cuda|cpu]
 """
 
 from __future__ import annotations
@@ -108,9 +110,14 @@ def parse_args(argv=None):
     ap.add_argument("--out", default=os.path.join(tempfile.gettempdir(),
                                                   "rayeater_compute_drawing"))
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--host-loop", action="store_true",
-                    help="render each frame eagerly and present it through "
-                         "the swapchain ring instead of the device loop")
+    loop = ap.add_mutually_exclusive_group()
+    loop.add_argument("--device-loop", action="store_true",
+                      help="render the frames as one animation through "
+                           "render_animation (the default)")
+    loop.add_argument("--host-loop", action="store_true",
+                      help="render each frame eagerly and present it "
+                           "through the swapchain ring instead of the "
+                           "device loop")
     ap.add_argument("--device", default="cuda")
     return ap.parse_args(argv)
 

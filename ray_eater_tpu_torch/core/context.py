@@ -31,6 +31,10 @@ class ContextConfig:
 
     #: "cuda" (the default when None) or "cpu".
     platform: str | None = None
+    #: Accepted for the reference's signature and changes nothing: every
+    #: ``RenderGraph.bake`` validates the graph (context.zig:145-147, the
+    #: validation layer, done statically).
+    validation: bool = True
     #: True when the kernels' plain PyTorch versions run (the CPU); None
     #: resolves from the device. The JAX package's Pallas interpret mode
     #: has no counterpart: a kernel wrapper takes its plain version for

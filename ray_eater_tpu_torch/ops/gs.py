@@ -126,6 +126,17 @@ def _kxml(tile_w: int) -> int:
     return _fan_kx(KY_ML, tile_w)
 
 
+def level_mid_max_radius(tile_w: int = TILE_W) -> int:
+    """Radius ceiling of the mid _kxm×KY_M fan (three-level binning)."""
+    return min(_fan_limits(_kxm(tile_w), KY_M, tile_w))
+
+
+def level_midlo_max_radius(tile_w: int = TILE_W) -> int:
+    """Radius ceiling of the mid-lo _kxml×KY_ML fan (four-level binning
+    via ``mid_lo_cap``)."""
+    return min(_fan_limits(_kxml(tile_w), KY_ML, tile_w))
+
+
 def num_tiles(width: int, height: int,
               tile_w: int = TILE_W) -> tuple[int, int]:
     """(ntx, nty) tile-grid shape for a framebuffer size."""
