@@ -57,6 +57,7 @@ import torch.nn.functional as F
 from ..models.gaussians import eval_sh_colors
 from ..utils import on_device
 from ..utils import pad_to as _pad_to
+from ..utils.profiler import annotate, count_frame
 from . import _cuda
 
 TILE_H = 32
@@ -642,6 +643,7 @@ class Binned(NamedTuple):
     # the lod_tail slab (None without ``tail``): (tail_la (ntiles,),
     # tail_rgb (ntiles, 3)) over each tile's dropped pairs
     tail_slab: tuple | None = None
+    emitted: torch.Tensor | None = None   # () i32 pairs emitted
 
 
 def _bin_splats(mx, my, rad, valid, depth, ntx: int, nty: int,
@@ -747,23 +749,26 @@ def _bin_splats(mx, my, rad, valid, depth, ntx: int, nty: int,
     # the splat id of every key, i32: the level-1 slots hold every splat in
     # index order, each channel's slots its compacted indices
     ids = [torch.arange(n, dtype=_I32, device=dev).repeat(nl1)]
-    if comp:
-        side = torch.stack([mx, my, rx, ry, r, qd.to(_F32)], -1)
-        results = _compact_channels([c[0] for c in comp],
-                                    [c[1] for c in comp])
-        for (_, ch_cap, ch_kx, ch_ky), (nset, bidx, bvalid) \
-                in zip(comp, results):
-            overflow_big = overflow_big + torch.clamp(nset - ch_cap, min=0)
-            bs = side[bidx]                               # (ch_cap, 6)
-            bkeys = _emit_fan(bs[:, 0], bs[:, 1], bs[:, 2], bs[:, 3],
-                              bs[:, 4], bvalid, bs[:, 5].to(_I32), ch_kx,
-                              ch_ky, ntx, nty, db, tile_w)
-            keys += bkeys
-            ids.append(bidx.repeat(len(bkeys)))
-            if tail is not None:
-                np_big = sum((k != sentinel).to(_I32) for k in bkeys)
-                auxs.append(_pack_tail_aux(tail[0][bidx], tail[1][bidx],
-                                           np_big, pix).repeat(len(bkeys)))
+    with annotate("gs.bin.channels"):
+        if comp:
+            side = torch.stack([mx, my, rx, ry, r, qd.to(_F32)], -1)
+            results = _compact_channels([c[0] for c in comp],
+                                        [c[1] for c in comp])
+            for (_, ch_cap, ch_kx, ch_ky), (nset, bidx, bvalid) \
+                    in zip(comp, results):
+                overflow_big = overflow_big + torch.clamp(nset - ch_cap,
+                                                          min=0)
+                bs = side[bidx]                           # (ch_cap, 6)
+                bkeys = _emit_fan(bs[:, 0], bs[:, 1], bs[:, 2], bs[:, 3],
+                                  bs[:, 4], bvalid, bs[:, 5].to(_I32), ch_kx,
+                                  ch_ky, ntx, nty, db, tile_w)
+                keys += bkeys
+                ids.append(bidx.repeat(len(bkeys)))
+                if tail is not None:
+                    np_big = sum((k != sentinel).to(_I32) for k in bkeys)
+                    auxs.append(_pack_tail_aux(tail[0][bidx], tail[1][bidx],
+                                               np_big, pix)
+                                .repeat(len(bkeys)))
     key_flat = torch.cat(keys)
     m = key_flat.shape[0]
     sorted_key, perm = torch.sort(key_flat, stable=True)
@@ -799,28 +804,30 @@ def _bin_splats(mx, my, rad, valid, depth, ntx: int, nty: int,
         kept = _pool_grant(torch.minimum(nthr, desired), desired,
                            cap_steps * CHUNK)
         kept = _block_snap(kept, desired, cap_steps, ntiles).to(_I32)
-        overflow = (count - kept).sum().to(_I32)
         pack_idx, row_begin = _aligned_pack_idx(startc, kept, cap_steps,
                                                 sorted_splat)
         row_begin = row_begin.to(_I32)
-        if tail_decim is not None:
-            # the tail extends each tile's sorted prefix past its head
-            # grant: uniform floor + proportional surplus by remaining
-            # depth, from a second pool, block-snapped
-            want_tl = torch.clamp(count - kept, max=LOD_DESIRE_CAP
-                                  * tail_decim)
-            cap_steps_tl = -(-ntiles * tail_decim // CHUNK)
-            kept_tl = _pool_grant(torch.clamp(want_tl, max=tail_decim),
-                                  want_tl, cap_steps_tl * CHUNK)
-            kept_tl = _block_snap(kept_tl, want_tl, cap_steps_tl,
-                                  ntiles).to(_I32)
-            overflow = (count - kept - kept_tl).sum().to(_I32)
-            pack_tl, begin_tl = _aligned_pack_idx(
-                startc + kept, kept_tl, cap_steps_tl, sorted_splat)
-            begin_tl = begin_tl.to(_I32).contiguous()
-            tail_tl = dict(pack_idx_tl=pack_tl, row_begin_tl=begin_tl,
-                           row_end_tl=(begin_tl + kept_tl).contiguous(),
-                           kept_tl=kept_tl)
+        if tail_decim is None:
+            overflow = (count - kept).sum(dtype=_I32)
+        else:
+            with annotate("gs.bin.tail"):
+                # the tail extends each tile's sorted prefix past its head
+                # grant: uniform floor + proportional surplus by remaining
+                # depth, from a second pool, block-snapped
+                want_tl = torch.clamp(count - kept, max=LOD_DESIRE_CAP
+                                      * tail_decim)
+                cap_steps_tl = -(-ntiles * tail_decim // CHUNK)
+                kept_tl = _pool_grant(torch.clamp(want_tl, max=tail_decim),
+                                      want_tl, cap_steps_tl * CHUNK)
+                kept_tl = _block_snap(kept_tl, want_tl, cap_steps_tl,
+                                      ntiles).to(_I32)
+                overflow = (count - kept - kept_tl).sum(dtype=_I32)
+                pack_tl, begin_tl = _aligned_pack_idx(
+                    startc + kept, kept_tl, cap_steps_tl, sorted_splat)
+                begin_tl = begin_tl.to(_I32).contiguous()
+                tail_tl = dict(pack_idx_tl=pack_tl, row_begin_tl=begin_tl,
+                               row_end_tl=(begin_tl + kept_tl).contiguous(),
+                               kept_tl=kept_tl)
     else:
         blk = CHUNK * nseg
         mpad = _pad_to(m, blk)
@@ -839,7 +846,8 @@ def _bin_splats(mx, my, rad, valid, depth, ntx: int, nty: int,
     return Binned(pack_idx=pack_idx, row_begin=row_begin.contiguous(),
                   row_end=(row_begin + kept).contiguous(),
                   visited=kept > 0, overflow=overflow, kept=kept,
-                  count=count, overflow_big=overflow_big, **tail_tl)
+                  count=count, overflow_big=overflow_big,
+                  emitted=start[ntiles], **tail_tl)
 
 
 def _pack_records(records: torch.Tensor, pack_idx: torch.Tensor):
@@ -1455,6 +1463,7 @@ class FrameLayout(NamedTuple):
     nty: int
     tile_w: int
     records_tl: torch.Tensor | None = None    # packed tail records
+    n_valid: torch.Tensor | None = None   # () i32 splats K1 kept (LOD)
 
 
 def _exact_pair_cap(n: int, ntiles: int, ky: int, tile_w: int, corner_cap,
@@ -1543,8 +1552,9 @@ def _frame_layout(cloud, view, proj, width: int, height: int, *,
         a_full = (ps.opacity * torch.isfinite(ps.depth).to(_F32)
                   * (2.0 * math.pi) * torch.rsqrt(detc))
         tail_in = (a_full, ps.color)
+    valid = torch.isfinite(ps.depth)
     binned = _bin_splats(ps.mean2d[:, 0], ps.mean2d[:, 1], ps.radius,
-                         torch.isfinite(ps.depth), ps.depth, ntx, nty,
+                         valid, ps.depth, ntx, nty,
                          cap_pairs, ky=ky, max_per_tile=max_splats_per_tile,
                          budget=lod_budget, tile_w=tile_w, nseg=exact_seg,
                          ext=ps.ext, big_cap=big_splat_cap,
@@ -1556,7 +1566,9 @@ def _frame_layout(cloud, view, proj, width: int, height: int, *,
                   else _pack_records(records, binned.pack_idx_tl))
     return FrameLayout(records=_pack_records(records, binned.pack_idx),
                        binned=binned, ntx=ntx, nty=nty, tile_w=tile_w,
-                       records_tl=records_tl)
+                       records_tl=records_tl,
+                       n_valid=(None if max_splats_per_tile is None
+                                else valid.sum(dtype=_I32)))
 
 
 def _tail_entry(head_t, visited, tile_w: int, decim: int):
@@ -1610,7 +1622,9 @@ def render_gaussians(cloud, view, proj, width: int, height: int,
     ``overflow_big_splats`` (splats the side channels dropped),
     ``tile_exec`` (head rows composited before saturation, 0 for unvisited
     tiles), ``tile_kept``, ``tile_count`` and the head-based ``lossless``
-    certificate."""
+    certificate. Every LOD frame adds its valid splats, pairs emitted,
+    ``overflow_pairs`` and ``overflow_big_splats`` to the device's frame
+    counters (``utils.profiler.count_frame``), stats or not."""
     _check_channels(max_splats_per_tile, big_splat_cap, mid_splat_cap,
                     mid_lo_splat_cap, lod_tail_decim)
     tail_d = _TAIL_D if lod_tail_d is None else lod_tail_d
@@ -1628,6 +1642,8 @@ def render_gaussians(cloud, view, proj, width: int, height: int,
                         corner_cap=corner_cap, lod_tail_decim=lod_tail_decim,
                         lod_tail=lod_tail)
     b = lay.binned
+    if max_splats_per_tile is not None:
+        count_frame(lay.n_valid, b.emitted, b.overflow, b.overflow_big)
     planes, texec = _composite_call(lay.records, b.row_begin, b.row_end,
                                     lay.ntx, lay.nty, tile_w)
     tail_planes = None

@@ -21,8 +21,10 @@ SH path of ``chip_smoke.py``) at t = 0.5, its budgets warmed over 8
 frames, and ``eval_sh_colors`` alone.
 Prints, per mode, the CUDA-event
 time per frame (or step), the summed device time per frame of the top
-kernels by name, the number of kernel launches per frame and the device
-busy share (summed kernel time over wall time). Needs a CUDA device; exits
+kernels by name, the number of kernel launches per frame, the device
+busy share (summed kernel time over wall time) and the device extent of
+the render path's spans (``gs.bin.channels``, ``gs.bin.tail``: first to
+last kernel inside each, idle gaps included). Needs a CUDA device; exits
 2 without one.
 """
 
@@ -47,8 +49,13 @@ def _profile(torch, frame, frames: int):
         b.record()
         b.synchronize()
     wall_ms = a.elapsed_time(b)
-    rows = []
+    rows, spans = [], []
     for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA and e.is_user_annotation \
+                and e.key.startswith("gs."):
+            # the render path's spans (ops/gs.py): on the device, first
+            # to last kernel launched inside each, idle gaps included
+            spans.append((e.device_time_total / 1e3 / frames, e.key))
         if e.device_type != DeviceType.CUDA or e.is_user_annotation:
             # host-side ops, and annotated ranges such as the optimizer's
             # step: their kernels are rows too
@@ -57,7 +64,7 @@ def _profile(torch, frame, frames: int):
         if dev_us > 0:
             rows.append((dev_us / 1e3 / frames, e.count / frames, e.key))
     rows.sort(reverse=True)
-    return wall_ms / frames, rows
+    return wall_ms / frames, rows, sorted(spans, reverse=True)
 
 
 def main(argv=None) -> int:
@@ -88,7 +95,7 @@ def main(argv=None) -> int:
     else:
         modes = _render_modes(args.scene, W, H, n, dev)
     for name, frame in modes.items():
-        ms, rows = _profile(torch, frame, args.frames)
+        ms, rows, spans = _profile(torch, frame, args.frames)
         busy = sum(r[0] for r in rows)
         launches = sum(r[1] for r in rows)
         print(f"== {name}: {ms:.3f} ms/frame (CUDA events), device busy "
@@ -96,6 +103,9 @@ def main(argv=None) -> int:
               f"{launches:.0f} kernel launches/frame")
         for dev_ms, count, key in rows[:args.top]:
             print(f"  {dev_ms:9.4f} ms/frame  {count:6.1f}/frame  {key[:90]}")
+        for dev_ms, key in spans:
+            print(f"  {dev_ms:9.4f} ms/frame  span {key} (first to last "
+                  "kernel, gaps included)")
     return 0
 
 

@@ -6,7 +6,11 @@
 * :func:`trace`: a ``torch.profiler`` capture of the host and, where there
   is one, the CUDA device, written as a Chrome trace;
 * :class:`StageTimer`: wall-clock per-stage breakdown, fenced with
-  ``torch.cuda.synchronize`` when a stage's results lie on a CUDA device.
+  ``torch.cuda.synchronize`` when a stage's results lie on a CUDA device;
+* :func:`count_frame`, :func:`read_counters`, :func:`reset_counters`: the
+  frame counters (:data:`COUNTERS`), one int64 buffer a device that each
+  LOD frame of ``render_gaussians`` adds to on the device, inside a
+  captured frame step too, and that is read with one host copy.
 """
 
 from __future__ import annotations
@@ -17,6 +21,68 @@ import time
 from collections import defaultdict, deque
 
 import torch
+from torch._subclasses.fake_tensor import is_fake
+
+#: the frame counters, in the order of each device's buffer: LOD frames,
+#: splats valid after the projection (K1), pairs emitted, pairs dropped
+#: (behind the head, or behind the decimated tail where there is one) and
+#: splats the side channels dropped whole
+COUNTERS = ("frames", "valid_splats", "pairs_emitted", "pairs_dropped",
+            "side_dropped_splats")
+
+#: device -> (totals (len(COUNTERS),) int64, the int32 one a frame adds);
+#: buffers are zeroed in place and never dropped, since a captured frame
+#: step adds to the memory it captured
+_counters: dict = {}
+
+
+def _tracing(x: torch.Tensor) -> bool:
+    """Whether ``x`` is a traced stand-in (``torch.export``, ``torch.compile``
+    or a meta tensor) rather than a value on a device."""
+    return (x.device.type == "meta" or torch.compiler.is_compiling()
+            or is_fake(x))
+
+
+def count_frame(valid: torch.Tensor, emitted: torch.Tensor,
+                dropped: torch.Tensor, side_dropped: torch.Tensor) -> None:
+    """Add one frame to the counters of the device its 0-d int32 counts
+    lie on: one stack and one ``add_`` there, no host sync. The buffer is
+    made by the first eager call on a device; a frame captured in a CUDA
+    graph before any eager frame on its device counts nothing (the buffer
+    is never made in a graph's memory pool), and traced frames count
+    nothing."""
+    if _tracing(valid):
+        return
+    dev = valid.device
+    state = _counters.get(dev)
+    if state is None:
+        if dev.type == "cuda" and torch.cuda.is_current_stream_capturing():
+            return
+        state = _counters[dev] = (
+            torch.zeros(len(COUNTERS), dtype=torch.int64, device=dev),
+            torch.ones((), dtype=torch.int32, device=dev))
+    totals, one = state
+    totals.add_(torch.stack([one, valid, emitted, dropped, side_dropped]))
+
+
+def read_counters(device=None) -> dict | None:
+    """The counters of ``device`` (every device's summed when None) as
+    ``{name: int}``, one host copy a device; None where no frame was
+    counted."""
+    bufs = [t for d, (t, _) in _counters.items()
+            if device is None or d == torch.device(device)]
+    if not bufs:
+        return None
+    tot = sum(b.cpu() for b in bufs).tolist()
+    if tot[0] == 0:
+        return None
+    return dict(zip(COUNTERS, tot))
+
+
+def reset_counters() -> None:
+    """Zero every device's counters in place."""
+    for totals, _ in _counters.values():
+        totals.zero_()
 
 
 @contextlib.contextmanager
