@@ -101,8 +101,11 @@ kernel against its plain PyTorch version, and drives the port's main paths:
   must be above zero and go into the kernels line.
 
 Every kernel is called through its ``torch.library`` custom op
-(``rayeater::k1_project`` .. ``k10_splat``), whose CUDA implementation
-launches it and counts the launch.
+(``rayeater::k1_project`` .. ``k10_splat``, ``sh_colors``), whose CUDA
+implementation launches it and counts the launch. The SH colour kernel
+is checked against its plain version and timed on the SH path's 1M-splat
+cloud, its record last in the kernels line, and counts one launch for
+every frame of an SH cloud and none elsewhere.
 
 The entry points (basic_planes, multipass, compute_drawing) run their
 default device loop, ``render_animation``: two eager warm-up steps, then
@@ -195,6 +198,7 @@ SH_EYE = (2.0, 0.8, 1.0)
 # CUDA vs CPU SH colours: the direction's norm and the band products may
 # round differently (sqrt, division)
 SH_TOL = 1e-6
+SH_OPS_PER_SPLAT = 153   # degree-3 SH colour's float32 operations a splat
 # PLY round trip of the activated fields: logit/sigmoid, log/exp and the
 # DC decode in float32
 SH_PLY_TOL = 1e-5
@@ -669,6 +673,12 @@ def main_path(torch, cuda, scene: str, frames):
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     require(min(psnrs) >= MIN_PSNR,
             f"{scene} min PSNR {min(psnrs)} < {MIN_PSNR}")
+    # every frame of an SH cloud evaluates its colours once
+    sh_frames = (FRAMES + GATE_SAMPLES * (warmup + 2)
+                 if frames.cloud.sh_rest is not None else 0)
+    require(launches["sh_colors"] == sh_frames,
+            f"{scene}: {launches['sh_colors']} SH colour launches over "
+            f"{sh_frames} SH frames")
     return launches
 
 
@@ -1517,9 +1527,12 @@ def sh_path(torch, gs, cuda, dev):
     """The SH main path: gs_viewer's 1M-splat synthetic cloud with 15 SH
     bands (degree 3) written by save_ply and read back by load_ply, then
     gs_viewer's frames at its defaults (LOD with temporal budgets, SH
-    colours at the eye) through main_path, then its animation phase.
-    Returns the launch counts and the animation record."""
+    colours at the eye) through main_path, then its animation phase; the
+    SH colour kernel against its plain version and timed on the cloud.
+    Returns the launch counts, the animation record and the kernel's
+    record of the kernels line."""
     from ray_eater_tpu_torch import gs_viewer
+    from ray_eater_tpu_torch.models import gaussians
     from ray_eater_tpu_torch.models.gaussians import (eval_sh_colors,
                                                       load_ply, save_ply)
     src = gs_viewer.synthetic_cloud(N_SPLATS, 15, dev)
@@ -1552,17 +1565,24 @@ def sh_path(torch, gs, cuda, dev):
         f"{v.cap_factor}, tile_w {v.tile_w}, big_splat_cap "
         f"{v.big_splat_cap}, {v.width}x{v.height}")
     view, proj, eye = v.camera(0.0)
+    cuda.reset_launches()
     colors = eval_sh_colors(cloud, eye)
-    torch.cuda.synchronize()
-    with torch.profiler.profile(
-            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        eval_sh_colors(cloud, eye)
-        torch.cuda.synchronize()
-    sh_launches = sum(e.count for e in prof.key_averages()
-                      if e.device_type == torch.autograd.DeviceType.CUDA)
-    sh_ms = time_ms(torch, lambda: eval_sh_colors(cloud, eye), 20)
-    log(f"eval_sh_colors at {N_SPLATS} splats: {sh_ms:.4f} ms (CUDA "
-        f"events), {sh_launches} kernel launches a call (torch.profiler)")
+    sh_launches = dict(cuda.launches)
+    args = (cloud.means, cloud.colors, cloud.sh_rest, eye)
+    err = float((colors - gaussians._sh_colors_plain(*args)).abs().max())
+    log(f"eval_sh_colors at {N_SPLATS} splats: launches {sh_launches}; SH "
+        f"colour kernel vs plain max abs {err:.3e}")
+    require(sh_launches == dict.fromkeys(sh_launches, 0) | {"sh_colors": 1},
+            f"eval_sh_colors launched {sh_launches}, not the one SH colour "
+            "kernel")
+    require(err <= SH_TOL, f"SH colour kernel vs plain: max abs {err}")
+    ksh = kernel_record(
+        torch, "SH colour", "ray_eater_tpu_torch/csrc/gs_sh.cu",
+        "none (the JAX package evaluates SH in jnp)", gaussians._sh_colors_op,
+        gaussians._sh_colors_plain, args, err,
+        N_SPLATS * (12 + 12 + 3 * 4 * cloud.sh_rest.shape[1] + 12) + 12,
+        N_SPLATS * SH_OPS_PER_SPLAT, f"{N_SPLATS} splats, degree 3",
+        reps=50, plain_reps=10)
     dc = gs.render_gaussians(cloud, view, proj, v.width, v.height,
                              tile_w=v.tile_w)
     sh = v.exact(0.0)
@@ -1578,7 +1598,7 @@ def sh_path(torch, gs, cuda, dev):
                            carry=v.initial_budget(),
                            finite=img_finite(torch))
     viewer_phase(torch, cuda, cloud)
-    return launches, anim
+    return launches, anim, ksh
 
 
 # ---- this slice: native tier, textured basic_planes, viewer, baked frames,
@@ -1725,7 +1745,8 @@ def viewer_phase(torch, cuda, cloud):
     require(all(r[1] for r in results), "viewer: non-finite frame")
     require(graphs_after == graphs, f"viewer: the graph cache grew across "
             f"the resize round trip ({graphs} -> {graphs_after})")
-    require(lpf["k1_project"] == 1 and lpf["k2_composite"] == 1,
+    require(lpf["k1_project"] == 1 and lpf["k2_composite"] == 1
+            and lpf["sh_colors"] == 1,
             f"viewer: launches a replayed frame {lpf}")
     return dict(served_ms=served_ms, served_dev_ms=served_dev_ms,
                 capture_s=capture_s)
@@ -2553,9 +2574,9 @@ def run() -> int:
                                  finite=fb_finite(torch)))
     torch.cuda.empty_cache()
 
-    # ---- SH colours from a PLY through gs_viewer: K1, K2 ------------------
+    # ---- SH colours from a PLY through gs_viewer: SH colour, K1, K2 ------
     check_sh_small(torch)
-    sh_launches, anim = sh_path(torch, gs, cuda, dev)
+    sh_launches, anim, ksh = sh_path(torch, gs, cuda, dev)
     anims.append(anim)
     torch.cuda.empty_cache()
 
@@ -2585,7 +2606,8 @@ def run() -> int:
                    (k3, "k3_composite_tail"), (k4, "k4_composite_ckpt"),
                    (k5, "k5_composite_bwd"), (k6, "k6_raster"),
                    (k7, "k7_raster_binned"), (k8, "k8_shade_fetch"),
-                   (k9, "k9_subtile"), (k10, "k10_splat")):
+                   (k9, "k9_subtile"), (k10, "k10_splat"),
+                   (ksh, "sh_colors")):
         d["launches"] = sum(p[key] for p in paths)
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
@@ -2594,7 +2616,7 @@ def run() -> int:
     log(f"card: {card}")
     print(json.dumps({"kernels": [{k: d[k] for k in keys}
                                   for d in (k1, k2, k3, k4, k5, k6, k7, k8,
-                                            k9, k10)]}))
+                                            k9, k10, ksh)]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

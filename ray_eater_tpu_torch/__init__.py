@@ -13,12 +13,13 @@ the ``gs_viewer`` entry point) and its host runtime (``core.animation``:
 ``render_animation`` as the replay of a captured CUDA graph;
 ``core.swapchain.Swapchain``, ``core.context.Context``,
 ``graph.render_graph``, ``utils``, ``io.obj``) with plain PyTorch
-for the tensor glue and ten kernels written by hand in CUDA C++
+for the tensor glue and eleven kernels written by hand in CUDA C++
 (``csrc/``): K1, the EWA projection; K2, the tile composite; K3, the
 composite of the decimated tail; K4, K2 plus the entry-T checkpoints that
 training saves; K5, the composite's backward; K6 and K7, the dense and
 binned raster folds; K8, the winner-feature fetch; K9, the subtile
-sampler's window taps; and K10, the particle splat's coverage mask.
+sampler's window taps; K10, the particle splat's coverage mask; and the
+SH colour kernel, the view-dependent colours of degree-1 to -3 splats.
 
 Nothing here imports JAX or ``ray_eater_tpu``. Entry points run on
 ``"cuda"`` unless the caller passes CPU tensors or ``device="cpu"``; on the

@@ -17,6 +17,8 @@ from typing import Mapping
 import numpy as np
 import torch
 
+from ..ops import _cuda
+
 _FIELDS = ("means", "scales", "quats", "opacities", "colors")
 
 
@@ -44,14 +46,20 @@ class GaussianCloud:
     def sh_degree(self) -> int:
         if self.sh_rest is None:
             return 0
-        return int(round((self.sh_rest.shape[1] + 1) ** 0.5)) - 1
+        return _sh_degree(self.sh_rest.shape[1])
+
+
+def _sh_degree(bands: int) -> int:
+    """The SH degree of ``bands`` higher-band coefficients a channel."""
+    return int(round((bands + 1) ** 0.5)) - 1
 
 
 def gaussian_cloud(means, scales, quats, opacities, colors, sh_rest=None,
                    device="cuda") -> GaussianCloud:
-    """Build a cloud from array-likes, as float32 on ``device``."""
+    """Build a cloud from array-likes, as contiguous float32 on
+    ``device`` (the SH colour kernel reads ``sh_rest`` as it lies)."""
     def f(x):
-        return torch.from_numpy(np.array(x, np.float32)).to(device)
+        return torch.from_numpy(np.array(x, np.float32, order="C")).to(device)
     n = np.asarray(means).reshape(-1, 3).shape[0]
     return GaussianCloud(means=f(means).reshape(-1, 3),
                          scales=f(scales).reshape(-1, 3),
@@ -179,24 +187,23 @@ _SH_C2 = (1.0925484305920792, -1.0925484305920792, 0.31539156525252005,
 _SH_C3 = (-0.5900435899266435, 2.890611442640554, -0.4570457994644658,
           0.3731763325901154, -0.4570457994644658, 1.445305721320277,
           -0.5900435899266435)
+#: the band counts the SH colour kernel takes (degree 1, 2, 3)
+_SH_BANDS = (3, 8, 15)
 
 
-def eval_sh_colors(cloud: GaussianCloud, cam_pos) -> torch.Tensor:
-    """View-dependent colours: the cloud's SH evaluated at the direction
-    from ``cam_pos`` (3,) (array-like or tensor) to each splat, (N, 3)
-    linear RGB clipped to [0, 1]. Degree 0 returns ``cloud.colors``
-    itself, unclipped. The bands are summed in the JAX package's order
-    (the original 3DGS evaluation, bands y, z, x)."""
-    base = cloud.colors
-    if cloud.sh_rest is None or cloud.sh_rest.shape[1] == 0:
-        return base
-    eye = torch.as_tensor(cam_pos, dtype=torch.float32).to(base.device)
-    d = cloud.means - eye
+def _sh_colors_plain(means: torch.Tensor, colors: torch.Tensor,
+                     sh_rest: torch.Tensor, eye: torch.Tensor) -> torch.Tensor:
+    """Plain version of the SH colour kernel (``csrc/gs_sh.cu``): the
+    (N, 3) colours of splats at ``means`` with DC ``colors`` and higher
+    bands ``sh_rest`` (N, B, 3), seen from ``eye`` (3,). The bands are
+    summed in the JAX package's order (the original 3DGS evaluation,
+    bands y, z, x)."""
+    d = means - eye
     d = d / torch.sqrt(torch.sum(d * d, -1, keepdim=True)).clamp(min=1e-12)
     x, y, z = d[:, 0:1], d[:, 1:2], d[:, 2:3]
-    sh = cloud.sh_rest
-    deg = cloud.sh_degree
-    out = base - 0.5
+    sh = sh_rest
+    deg = _sh_degree(sh.shape[1])
+    out = colors - 0.5
     out = out + _SH_C1 * (-y * sh[:, 0] + z * sh[:, 1] - x * sh[:, 2])
     if deg >= 2:
         xx, yy, zz = x * x, y * y, z * z
@@ -215,6 +222,53 @@ def eval_sh_colors(cloud: GaussianCloud, cam_pos) -> torch.Tensor:
                      + _SH_C3[5] * z * (xx - yy) * sh[:, 13]
                      + _SH_C3[6] * x * (xx - 3 * yy) * sh[:, 14])
     return torch.clamp(out + 0.5, 0.0, 1.0)
+
+
+def _sh_colors_fake(means, colors, sh_rest, eye):
+    return colors.new_empty(colors.shape)
+
+
+@_cuda.kernel_op("sh_colors", _sh_colors_plain, _sh_colors_fake)
+def _sh_colors_op(means: torch.Tensor, colors: torch.Tensor,
+                  sh_rest: torch.Tensor, eye: torch.Tensor) -> torch.Tensor:
+    """The SH colour kernel's launch: the (N, 3) f32 colours, one thread a
+    splat, for B = 3, 8 or 15 (degree 1, 2, 3)."""
+    dev = _cuda.cuda_device(means, "SH colours")
+    n = means.shape[0]
+    bands = sh_rest.shape[1] if sh_rest.dim() == 3 else -1
+    if bands not in _SH_BANDS:
+        raise ValueError(f"sh_rest has shape {tuple(sh_rest.shape)}, "
+                         f"expected (N, B, 3) with B in {_SH_BANDS}")
+    _cuda.check_arg(means, "means", torch.float32, (n, 3), dev)
+    _cuda.check_arg(colors, "colors", torch.float32, (n, 3), dev)
+    _cuda.check_arg(sh_rest, "sh_rest", torch.float32, (n, bands, 3), dev)
+    _cuda.check_arg(eye, "eye", torch.float32, (3,), dev)
+    out = torch.empty((n, 3), dtype=torch.float32, device=dev)
+    if n:
+        with torch.cuda.device(dev):
+            err = _cuda.lib().sh_colors(
+                means.data_ptr(), colors.data_ptr(), sh_rest.data_ptr(),
+                eye.data_ptr(), n, bands, out.data_ptr(),
+                torch.cuda.current_stream(dev).cuda_stream)
+        _cuda.check(err, "SH colours")
+        _cuda.launches["sh_colors"] += 1
+    return out
+
+
+def eval_sh_colors(cloud: GaussianCloud, cam_pos) -> torch.Tensor:
+    """View-dependent colours: the cloud's SH evaluated at the direction
+    from ``cam_pos`` (3,) (array-like or tensor) to each splat, (N, 3)
+    linear RGB clipped to [0, 1]. Degree 0 returns ``cloud.colors``
+    itself, unclipped. The op ``rayeater::sh_colors``: one kernel launch
+    on CUDA tensors (or raises), :func:`_sh_colors_plain` on CPU
+    tensors."""
+    base = cloud.colors
+    if cloud.sh_rest is None or cloud.sh_rest.shape[1] == 0:
+        return base
+    eye = torch.as_tensor(cam_pos, dtype=torch.float32).to(base.device)
+    _cuda.op_device(base, "SH colours")
+    return _sh_colors_op(cloud.means.contiguous(), base.contiguous(),
+                         cloud.sh_rest.contiguous(), eye)
 
 
 def _sigmoid(x):

@@ -9,7 +9,7 @@ the hash of the sources and flags, so an edited source never loads a stale
 library. Nothing here runs at import time: the CPU tests import every
 module on machines with no ``nvcc``.
 
-Each of the ten kernels is an op ``rayeater::<name>``: its CUDA
+Each of the eleven kernels is an op ``rayeater::<name>``: its CUDA
 implementation checks the arguments, launches the kernel on the current
 stream and counts the launch; its CPU implementation is the kernel's plain
 PyTorch version; its fake implementation gives the outputs' shapes and
@@ -38,7 +38,7 @@ import torch
 _PKG = Path(__file__).resolve().parent.parent
 _CSRC = _PKG / "csrc"
 _SOURCES = ("gs_project.cu", "gs_composite.cu", "gs_composite_bwd.cu",
-            "raster.cu", "sampling.cu", "splat.cu")
+            "raster.cu", "sampling.cu", "splat.cu", "gs_sh.cu")
 _BUILD = _PKG / "_build"
 _ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 _FLAGS = (*_ARCH, "-std=c++17", "-O3", "--fmad=false", "-Xcompiler", "-fPIC")
@@ -51,7 +51,7 @@ _lib = None
 launches = {"k1_project": 0, "k2_composite": 0, "k3_composite_tail": 0,
             "k4_composite_ckpt": 0, "k5_composite_bwd": 0, "k6_raster": 0,
             "k7_raster_binned": 0, "k8_shade_fetch": 0, "k9_subtile": 0,
-            "k10_splat": 0}
+            "k10_splat": 0, "sh_colors": 0}
 
 
 def reset_launches() -> None:
@@ -152,6 +152,8 @@ def load(csrc: Path = _CSRC) -> None:
     so.subtile_sample_bf16.restype = i
     so.splat_mask.argtypes = [p, i, i, i, i, i, i, p, p]
     so.splat_mask.restype = i
+    so.sh_colors.argtypes = [p, p, p, p, i, i, p, p]
+    so.sh_colors.restype = i
     _lib = so
 
 

@@ -3,7 +3,8 @@
 
 - Every op a tiny frame of each main path calls (K1-K3 on an LOD frame with
   the decimated tail, K4/K5 on a training step, K6 on multipass, K7-K9 on
-  the binned grid, K10 on compute_drawing) passes ``torch.library.opcheck``'s
+  the binned grid, K10 on compute_drawing, the SH colour kernel on a
+  degree-3 cloud) passes ``torch.library.opcheck``'s
   schema and fake-tensor checks on its CPU inputs: the fake implementation
   gives the plain version's shapes and dtypes.
 - JAX's ``test_baked_frame_serialization`` case; a tiny fog frame (two
@@ -17,11 +18,11 @@ import pytest
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
-from ray_eater_tpu_torch import compute_drawing, multipass
+from ray_eater_tpu_torch import compute_drawing, gs_viewer, multipass
 from ray_eater_tpu_torch import raster_scenes as rs
 from ray_eater_tpu_torch.bench_knobs import flythrough_camera
 from ray_eater_tpu_torch.graph import render_graph as tgraph
-from ray_eater_tpu_torch.models.gaussians import random_cloud
+from ray_eater_tpu_torch.models.gaussians import eval_sh_colors, random_cloud
 from ray_eater_tpu_torch.ops import gs
 
 torch.set_num_threads(1)
@@ -62,6 +63,8 @@ def _main_path_calls():
             t=torch.tensor(0.5))
         rs.scene("grid10k", "cpu", W, H).frame(0.5)
         compute_drawing.setup("cpu", width=W, height=H, particles=64)
+        eval_sh_colors(gs_viewer.synthetic_cloud(64, 15, "cpu"),
+                       torch.tensor([2.0, 0.8, 1.0]))
     return rec.calls
 
 

@@ -1,9 +1,9 @@
-"""K1–K10 on a CUDA device against their plain PyTorch versions (each
-kernel's op checked against its fake implementation), one
-training step through K4 and K5, raster frames through K6–K9, the
-compute_drawing sample through K10 and K6, SH colours through the
-gs_viewer entry point, and ``render_animation``'s CUDA-graph replay
-against its eager loop (raster, fog with its budget carry and
+"""K1–K10 and the SH colour kernel on a CUDA device against their plain
+PyTorch versions (each kernel's op checked against its fake
+implementation), one training step through K4 and K5, raster frames
+through K6–K9, the compute_drawing sample through K10 and K6, SH colours
+through the gs_viewer entry point, and ``render_animation``'s CUDA-graph
+replay against its eager loop (raster, fog with its budget carry and
 compute_drawing frames equal u8 for u8; a frame step that copies a host
 scalar to the device fails to capture and raises).
 
@@ -31,11 +31,13 @@ max abs and 1e-5 mean abs (running product vs cumprod; K3 merges chunks
 composited from T = 1), exec equal on ≥ 99.9% of tiles, K4's
 checkpoints within 1e-6 (the same running product on both sides); K5
 within 1e-4 × the plain version's largest |gradient| (reassociated sums,
-global atomics in no fixed order); K6 and K7 winner ids equal and
-λ0/λ1/depth within 1e-6 where they agree (the same operations in the
-same order, --fmad=false), K8 equal, K9 within 1e-6, K10 equal; SH
-colours on CUDA within 1e-6 of the CPU's (the direction's norm and the
-products may round differently).
+global atomics in no fixed order); the SH colour kernel within 1e-6 of
+its plain version on the card (the same float32 operations in the same
+order, --fmad=false; the norm's three-term sum may round differently);
+K6 and K7 winner ids equal and λ0/λ1/depth within 1e-6 where they agree
+(the same operations in the same order, --fmad=false), K8 equal, K9
+within 1e-6, K10 equal; SH colours on CUDA within 1e-6 of the CPU's (the
+direction's norm and the products may round differently).
 """
 
 import numpy as np
@@ -54,7 +56,7 @@ W, H = 480, 270
 NO_LAUNCHES = {"k1_project": 0, "k2_composite": 0, "k3_composite_tail": 0,
                "k4_composite_ckpt": 0, "k5_composite_bwd": 0, "k6_raster": 0,
                "k7_raster_binned": 0, "k8_shade_fetch": 0, "k9_subtile": 0,
-               "k10_splat": 0}
+               "k10_splat": 0, "sh_colors": 0}
 
 
 def _cuda():
@@ -730,8 +732,68 @@ def test_sh_colors_match_cpu_and_viewer_counts_launches(tmp_path):
         ["--ply", ply, "--frames", "2", "--width", str(W), "--height",
          str(H), "--host-loop", "--out", str(tmp_path)]))
     assert kernels.launches == dict(NO_LAUNCHES, k1_project=3,
-                                    k2_composite=3)
+                                    k2_composite=3, sh_colors=3)
     assert bool(torch.isfinite(r["image"]).all())
+
+
+def _sh_inputs(n, bands, offset, dev):
+    """A degree-(1..3) cloud's means, colours and coefficients on ``dev``:
+    rows ``offset:`` of larger arrays (a storage offset, as a rank's shard
+    has) in the scene's cube, colours in [0, 1), coefficients N(0, 0.3²)."""
+    g = torch.Generator().manual_seed(n * 31 + bands)
+    rows = n + offset
+    means = torch.rand((rows, 3), generator=g) * 2 - 1
+    colors = torch.rand((rows, 3), generator=g)
+    sh = torch.randn((rows, bands, 3), generator=g) * 0.3
+    return [t.to(dev)[offset:] for t in (means, colors, sh)]
+
+
+@pytest.mark.parametrize("bands", [3, 8, 15])
+@pytest.mark.parametrize("n", [1, 127, 20_000, 1_000_003])
+def test_sh_color_kernel_matches_plain(bands, n):
+    """The SH colour kernel against its plain version on the card within
+    1e-6 (the norm's three-term sum may round differently), from eyes
+    outside and inside the cloud, on aligned inputs and on views one and
+    three rows into larger arrays (the run's 16-byte phase 3 and 1, and a
+    ragged last CTA at 127 and 1,000,003 splats); one launch a call."""
+    from ray_eater_tpu_torch.models import gaussians
+    from ray_eater_tpu_torch.ops import _cuda as kernels
+    dev = _cuda()
+    for offset in (0, 1, 3):
+        means, colors, sh = _sh_inputs(n, bands, offset, dev)
+        for eye in ((2.0, 0.8, 1.0), (0.05, -0.1, 0.2)):
+            eye = torch.tensor(eye, device=dev)
+            kernels.reset_launches()
+            got = gaussians._sh_colors_op(means, colors, sh, eye)
+            want = gaussians._sh_colors_plain(means, colors, sh, eye)
+            assert kernels.launches == dict(NO_LAUNCHES, sh_colors=1)
+            assert got.shape == (n, 3) and got.dtype == torch.float32
+            err = float((got - want).abs().max())
+            assert err <= 1e-6, (offset, eye, err)
+
+
+def test_sh_color_kernel_refuses_what_it_does_not_take():
+    """On CUDA the op raises on a float64 or wrongly shaped ``sh_rest``, a
+    wrongly shaped eye, and launches nothing; there is no fallback."""
+    from ray_eater_tpu_torch.models import gaussians
+    from ray_eater_tpu_torch.ops import _cuda as kernels
+    dev = _cuda()
+    means, colors, sh = _sh_inputs(300, 15, 0, dev)
+    eye = torch.tensor([2.0, 0.8, 1.0], device=dev)
+    kernels.reset_launches()
+    bad = [(means, colors, sh.double(), eye),
+           (means, colors, sh[:, :5].contiguous(), eye),
+           (means, colors, sh.reshape(300, 45), eye),
+           (means, colors, sh[:299], eye),
+           (means, colors, sh, eye[:2])]
+    for args in bad:
+        with pytest.raises(ValueError):
+            gaussians._sh_colors_op(*args)
+    cloud = gaussians.GaussianCloud(means, means, means, means[:, 0],
+                                    colors, sh.double())
+    with pytest.raises(ValueError, match="dtype"):
+        gaussians.eval_sh_colors(cloud, eye)
+    assert kernels.launches == NO_LAUNCHES
 
 
 # ---- render_animation: CUDA-graph replay ------------------------------------
@@ -783,6 +845,21 @@ def test_replay_equals_eager_on_a_fog_frame_with_budgets():
     info, want = _replay_equals_eager(v.step, 5, carry=v.initial_budget())
     assert torch.equal(info["carry"], want["carry"])
     assert info["launches_per_frame"]["k2_composite"] == 1
+    assert info["launches_per_frame"]["sh_colors"] == 0
+
+
+def test_replay_equals_eager_on_an_sh_frame_with_budgets():
+    """gs_viewer's frame step on a degree-3 cloud: the eye computed on the
+    card in the captured graph, one SH colour launch a replayed frame."""
+    from ray_eater_tpu_torch import gs_viewer
+    dev = _cuda()
+    args = gs_viewer.parse_args(["--width", str(W), "--height", str(H),
+                                 "--max-per-tile", "64", "--device", "cuda"])
+    v = gs_viewer.viewer(args, gs_viewer.synthetic_cloud(20_000, 15, dev))
+    info, want = _replay_equals_eager(v.step, 5, carry=v.initial_budget())
+    assert torch.equal(info["carry"], want["carry"])
+    assert info["launches_per_frame"] == dict(
+        NO_LAUNCHES, k1_project=1, k2_composite=1, sh_colors=1)
 
 
 def test_replay_equals_eager_on_compute_drawing():
@@ -833,6 +910,8 @@ def test_ops_fake_shapes_match_the_kernels(scene):
     implementation's shapes and dtypes are the kernel's real outputs'."""
     from ray_eater_tpu_torch import compute_drawing
     from ray_eater_tpu_torch import raster_scenes as rs
+    from ray_eater_tpu_torch.gs_viewer import synthetic_cloud
+    from ray_eater_tpu_torch.models.gaussians import eval_sh_colors
     cloud, view, proj = scene
     dev = cloud.means.device
     with _OpCalls() as rec:
@@ -846,6 +925,8 @@ def test_ops_fake_shapes_match_the_kernels(scene):
         rs.scene("basic_planes", dev, 256, 128).frame(0.5)
         rs.scene("grid10k", dev, 256, 128).frame(0.5)
         compute_drawing.setup(dev, 0, 300, 200, 32)
+        eval_sh_colors(synthetic_cloud(300, 15, dev),
+                       torch.tensor([2.0, 0.8, 1.0], device=dev))
     names = sorted(f.__name__.split(".")[0] for f in rec.calls)
     assert names == sorted(NO_LAUNCHES), names
     for func, (args, kwargs) in rec.calls.items():

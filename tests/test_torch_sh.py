@@ -80,6 +80,58 @@ def test_sh_degree1_analytic():
     np.testing.assert_allclose(out[1:], 0.5, atol=1e-6)
 
 
+def _sh_expression(cloud, eye):
+    """``eval_sh_colors``'s PyTorch expression as it stood before the SH
+    colour kernel, kept here as the op's CPU oracle."""
+    C1, C2, C3 = gaussians._SH_C1, gaussians._SH_C2, gaussians._SH_C3
+    d = cloud.means - eye
+    d = d / torch.sqrt(torch.sum(d * d, -1, keepdim=True)).clamp(min=1e-12)
+    x, y, z = d[:, 0:1], d[:, 1:2], d[:, 2:3]
+    sh = cloud.sh_rest
+    deg = cloud.sh_degree
+    out = cloud.colors - 0.5
+    out = out + C1 * (-y * sh[:, 0] + z * sh[:, 1] - x * sh[:, 2])
+    if deg >= 2:
+        xx, yy, zz = x * x, y * y, z * z
+        xy, yz, xz = x * y, y * z, x * z
+        out = out + (C2[0] * xy * sh[:, 3] + C2[1] * yz * sh[:, 4]
+                     + C2[2] * (2.0 * zz - xx - yy) * sh[:, 5]
+                     + C2[3] * xz * sh[:, 6] + C2[4] * (xx - yy) * sh[:, 7])
+    if deg >= 3:
+        out = out + (C3[0] * y * (3 * xx - yy) * sh[:, 8]
+                     + C3[1] * xy * z * sh[:, 9]
+                     + C3[2] * y * (4 * zz - xx - yy) * sh[:, 10]
+                     + C3[3] * z * (2 * zz - 3 * xx - 3 * yy) * sh[:, 11]
+                     + C3[4] * x * (4 * zz - xx - yy) * sh[:, 12]
+                     + C3[5] * z * (xx - yy) * sh[:, 13]
+                     + C3[6] * x * (xx - 3 * yy) * sh[:, 14])
+    return torch.clamp(out + 0.5, 0.0, 1.0)
+
+
+@pytest.mark.parametrize("bands", [0, 3, 8, 15])
+def test_sh_colors_op_on_the_cpu_is_the_plain_expression(bands):
+    """``rayeater::sh_colors`` on CPU tensors is the plain expression bit
+    for bit and launches nothing; at degree 0 ``eval_sh_colors`` returns
+    the cloud's own colours, with no op call."""
+    from ray_eater_tpu_torch.ops import _cuda
+    cloud = gaussians.cloud_from_numpy(_arrays(97, bands, seed=5),
+                                       device="cpu")
+    _cuda.reset_launches()
+    for eye in ((0.0, 0.0, -5.0), (0.1, -0.2, 0.05)):
+        eye = torch.tensor(eye)
+        got = gaussians.eval_sh_colors(cloud, eye)
+        if bands == 0:
+            assert got is cloud.colors
+            continue
+        assert torch.equal(got, _sh_expression(cloud, eye))
+        assert torch.equal(torch.ops.rayeater.sh_colors(
+            cloud.means, cloud.colors, cloud.sh_rest, eye), got)
+        assert got.untyped_storage().data_ptr() not in {
+            t.untyped_storage().data_ptr() for t in (cloud.colors,
+                                                     cloud.means)}
+    assert set(_cuda.launches.values()) == {0}
+
+
 @pytest.fixture(scope="module")
 def ply_files(tmp_path_factory):
     """A degree-3 cloud written by the JAX package (binary) and the same
@@ -116,6 +168,10 @@ def test_load_ply_matches_jax(ply_files, which):
     want = jgauss.load_ply(path)
     got = gaussians.load_ply(path, device="cpu")
     assert got.sh_rest.shape == (40, 15, 3) and got.sh_degree == 3
+    # stored channel-major, returned (N, B, 3) contiguous: the SH colour
+    # kernel takes it without a copy a frame
+    assert all(getattr(got, f).is_contiguous()
+               for f in FIELDS + ("sh_rest",))
     for f in FIELDS + ("sh_rest",):
         np.testing.assert_array_equal(getattr(got, f).numpy(),
                                       np.asarray(getattr(want, f)), err_msg=f)
