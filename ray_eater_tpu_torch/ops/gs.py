@@ -37,10 +37,10 @@ Each kernel has a plain PyTorch version here and is a ``torch.library``
 custom op (``rayeater::k1_project`` .. ``k5_composite_bwd``): its wrapper
 runs the plain version only for CPU tensors.
 
-Everything ``render_gaussians`` takes is ported: exact and LOD modes, the
-side channels, the decimated tail, the ``lod_tail`` slab proxy
-(:func:`_pack_tail_aux`, :func:`_tail_sums`) and view-dependent SH
-colours.
+Steps 1–6 are written once, as the frame spine (:func:`_frame_knobs`,
+:func:`_project_records`, :func:`_bin_pack`, :func:`_composite_frame`,
+:func:`_frame_stats`) that ``render_gaussians`` and the row-band and
+depth-sliced renders of ``parallel.sharded`` share.
 """
 
 from __future__ import annotations
@@ -1384,14 +1384,9 @@ def _decimate_t(t_plane, tile_w: int, decim: int):
 # finalize + render
 # ---------------------------------------------------------------------------
 
-def _untile(plane, nty: int, ntx: int, tile_w: int = TILE_W):
-    """(ntiles, 32*tile_w) tile-flattened → (nty*32, ntx*tile_w) plane."""
-    return _untile_decim(plane, nty, ntx, tile_w, 1)
-
-
 def _untile_decim(plane, nty: int, ntx: int, tile_w: int, decim: int):
-    """:func:`_untile` for decimated tail planes: (..., ntiles, pixd) →
-    (..., nty*32/d, ntx*tile_w/d)."""
+    """(..., ntiles, pixd) tile-flattened planes, decimated by ``decim`` →
+    (..., nty*32/decim, ntx*tile_w/decim)."""
     th, tw = TILE_H // decim, tile_w // decim
     t = plane[..., :nty * ntx, :].reshape(*plane.shape[:-2], nty, ntx, th, tw)
     return t.transpose(-3, -2).reshape(*plane.shape[:-2], nty * th, ntx * tw)
@@ -1402,6 +1397,16 @@ def _upsample(grid, size):
     centres, as ``jax.image.resize``'s "bilinear" enlarges."""
     return F.interpolate(grid[None], size=tuple(size), mode="bilinear",
                          align_corners=False)[0]
+
+
+def _untile_visited(planes, visited, nty: int, ntx: int, tile_w: int):
+    """K2's planes untiled with never-visited tiles masked: (colour (Hp, Wp,
+    3) there 0, T (Hp, Wp) there 1, that T still tiled)."""
+    vis = visited[:, None]
+    t_vis = torch.where(vis, planes[3], 1.0)
+    rgb = torch.stack([_untile_decim(torch.where(vis, p, 0.0), nty, ntx,
+                                     tile_w, 1) for p in planes[:3]], -1)
+    return rgb, _untile_decim(t_vis, nty, ntx, tile_w, 1), t_vis
 
 
 def finalize_planes(planes, visited, nty: int, ntx: int, background,
@@ -1422,12 +1427,7 @@ def finalize_planes(planes, visited, nty: int, ntx: int, background,
     upsampled bilinearly across tile centres, the thickness is modulated
     per pixel by the head's occupancy 1 - T over its upsampled tile mean
     (clipped to [0, 3]), and the slab is composited behind the head."""
-    vis = visited[:, None]
-    r, g, b, t = planes
-    t_vis = torch.where(vis, t, 1.0)
-    rgb = torch.stack([_untile(torch.where(vis, p, 0.0), nty, ntx, tile_w)
-                       for p in (r, g, b)], -1)
-    tt = _untile(t_vis, nty, ntx, tile_w)
+    rgb, tt, t_vis = _untile_visited(planes, visited, nty, ntx, tile_w)
     if tail_decim_planes is not None:
         tail, td, vis_t = tail_decim_planes
         vt = vis_t[:, None]
@@ -1466,34 +1466,55 @@ class FrameLayout(NamedTuple):
     n_valid: torch.Tensor | None = None   # () i32 splats K1 kept (LOD)
 
 
-def _exact_pair_cap(n: int, ntiles: int, ky: int, tile_w: int, corner_cap,
-                    big_cap, mid_cap, mid_lo_cap) -> int:
-    """The most pairs ``n`` splats can emit over ``ntiles`` tiles through
-    the level-1 fan (or the 2-slot fan and the corner channel) and the
-    side channels' budgets, plus a chunk of slack a tile: exact mode's
-    pair cap before rounding."""
-    if corner_cap is not None and ky == 2 and KX == 2:
-        cap = n * 2 + corner_cap * KX * ky + ntiles * CHUNK
-    else:
-        cap = n * KX * ky + ntiles * CHUNK
-    if big_cap is not None:
-        cap += big_cap * _kx2(tile_w) * KY2
-        if mid_cap is not None:
-            cap += mid_cap * _kxm(tile_w) * KY_M
-            if mid_lo_cap is not None:
-                cap += mid_lo_cap * _kxml(tile_w) * KY_ML
-    return cap
+class _Knobs(NamedTuple):
+    """A frame's or band's knobs, resolved by :func:`_frame_knobs`."""
+    bins: dict                # _bin_splats' keywords, cap_pairs among them
+    slab: bool                # the lod_tail slab proxy (LOD mode only)
+    max_radius: float | None  # K1's radius ceiling (None: the level-1 fan's)
 
 
-def _check_channels(max_splats_per_tile, big_splat_cap, mid_splat_cap,
-                    mid_lo_splat_cap, lod_tail_decim) -> None:
-    """Raise on side-channel and tail knobs that need another one."""
+def _frame_knobs(n: int, ntiles: int, *, ky: int | None = None,
+                 tile_w: int = TILE_W,
+                 max_splats_per_tile: int | None = None,
+                 big_splat_cap: int | None = None,
+                 mid_splat_cap: int | None = None,
+                 mid_lo_splat_cap: int | None = None,
+                 corner_cap: int | None = None, lod_tail: bool = False,
+                 lod_tail_decim: int | None = None, exact_seg: int = 1,
+                 pairs_cap_factor: int | None = None) -> _Knobs:
+    """Check ``render_gaussians``' knobs for ``n`` splat rows over
+    ``ntiles`` tiles and resolve them. Exact mode's pair cap: the most pairs
+    the level-1 fan (or the 2-slot fan and the corner channel) and the side
+    channels can emit plus a chunk a tile, bounded by ``pairs_cap_factor``,
+    rounded to CHUNK (:func:`_bin_splats` rounds on to CHUNK·exact_seg)."""
+    ky = KY if ky is None else ky
     if mid_splat_cap is not None and big_splat_cap is None:
         raise ValueError("mid_splat_cap requires big_splat_cap")
     if mid_lo_splat_cap is not None and mid_splat_cap is None:
         raise ValueError("mid_lo_splat_cap requires mid_splat_cap")
     if lod_tail_decim is not None and max_splats_per_tile is None:
         raise ValueError("lod_tail_decim requires max_splats_per_tile")
+    if corner_cap is not None and ky == 2 and KX == 2:
+        cap = n * 2 + corner_cap * KX * ky + ntiles * CHUNK
+    else:
+        cap = n * KX * ky + ntiles * CHUNK
+    if big_splat_cap is not None:
+        cap += big_splat_cap * _kx2(tile_w) * KY2
+        if mid_splat_cap is not None:
+            cap += mid_splat_cap * _kxm(tile_w) * KY_M
+            if mid_lo_splat_cap is not None:
+                cap += mid_lo_splat_cap * _kxml(tile_w) * KY_ML
+    if pairs_cap_factor is not None:
+        cap = min(cap, max(pairs_cap_factor * n, 4 * CHUNK) + ntiles * CHUNK)
+    return _Knobs(
+        dict(cap_pairs=_pad_to(cap, CHUNK), ky=ky, tile_w=tile_w,
+             max_per_tile=max_splats_per_tile, nseg=exact_seg,
+             big_cap=big_splat_cap, mid_cap=mid_splat_cap,
+             mid_lo_cap=mid_lo_splat_cap, corner_cap=corner_cap,
+             tail_decim=lod_tail_decim),
+        slab=lod_tail and max_splats_per_tile is not None,
+        max_radius=(float(level2_max_radius(tile_w))
+                    if big_splat_cap is not None else None))
 
 
 def _on(x, dev, name: str) -> torch.Tensor:
@@ -1504,6 +1525,48 @@ def _on(x, dev, name: str) -> torch.Tensor:
             raise ValueError(f"{name} is on {x.device}, the cloud on {dev}")
         return x
     return torch.from_numpy(np.array(x)).to(dev)
+
+
+def _budget_on(lod_budget, dev):
+    """The temporal ``lod_budget`` (or None) on the cloud's device."""
+    return None if lod_budget is None else _on(lod_budget, dev, "lod_budget")
+
+
+def _project_records(cloud, view, proj, width: int, height: int,
+                     kn: _Knobs):
+    """K1 over the cloud → (ProjectedSplats, (N, 12) records)."""
+    dev = cloud.means.device
+    view = _on(view, dev, "view").to(_F32)
+    proj = _on(proj, dev, "proj").to(_F32)
+    ps = _project_fast(cloud.means, cloud.scales, cloud.quats,
+                       cloud.opacities, cloud.colors, view, proj,
+                       width, height, ky=kn.bins["ky"],
+                       max_radius=kn.max_radius)
+    return ps, _make_records(ps)
+
+
+def _bin_pack(kn: _Knobs, records, mx, my, rad, valid, depth, ext,
+              ntx: int, nty: int, budget=None,
+              depth_range=None) -> FrameLayout:
+    """Bin splat rows under ``kn`` (:func:`_bin_splats`; ``mx``, ``my`` as
+    the caller holds them: K1's contiguous means in a frame) and gather
+    ``records`` into the tail's and the head's packed order."""
+    tail = None
+    if kn.slab:
+        # the slab's input: each splat's alpha integral op·2π/sqrt(det
+        # (conic)) (det(conic) = 1/det(cov2d); culled rows carry op 0), and
+        # its colour
+        detc = torch.clamp(records[:, _CA] * records[:, _CC]
+                           - records[:, _CB] * records[:, _CB], min=1e-12)
+        tail = (records[:, _OP] * (2.0 * math.pi) * torch.rsqrt(detc),
+                records[:, _CR:_CB2 + 1])
+    b = _bin_splats(mx, my, rad, valid, depth, ntx, nty, budget=budget,
+                    ext=ext, tail=tail, depth_range=depth_range, **kn.bins)
+    records_tl = (None if b.pack_idx_tl is None
+                  else _pack_records(records, b.pack_idx_tl))
+    return FrameLayout(records=_pack_records(records, b.pack_idx),
+                       binned=b, ntx=ntx, nty=nty,
+                       tile_w=kn.bins["tile_w"], records_tl=records_tl)
 
 
 def _frame_layout(cloud, view, proj, width: int, height: int, *,
@@ -1519,56 +1582,23 @@ def _frame_layout(cloud, view, proj, width: int, height: int, *,
     """Project (K1), bin and pack one frame: everything before K2. With
     ``lod_tail`` (LOD mode) the binning also sums the slab proxy
     (``binned.tail_slab``)."""
-    dev = cloud.means.device
-    view = _on(view, dev, "view").to(_F32)
-    proj = _on(proj, dev, "proj").to(_F32)
-    max_radius = (float(level2_max_radius(tile_w))
-                  if big_splat_cap is not None else None)
-    ps = _project_fast(cloud.means, cloud.scales, cloud.quats,
-                       cloud.opacities, cloud.colors, view, proj,
-                       width, height, ky=ky, max_radius=max_radius)
-    records = _make_records(ps)
     ntx, nty = num_tiles(width, height, tile_w)
-    n = cloud.num_splats
-    ntiles = ntx * nty
-    exact_cap = _exact_pair_cap(n, ntiles, ky, tile_w, corner_cap,
-                                big_splat_cap, mid_splat_cap,
-                                mid_lo_splat_cap)
-    if pairs_cap_factor is None:
-        cap_pairs = exact_cap
-    else:
-        cap_pairs = min(exact_cap, max(pairs_cap_factor * n, 4 * CHUNK)
-                        + ntiles * CHUNK)
-    cap_pairs = _pad_to(cap_pairs, CHUNK)
-    if lod_budget is not None:
-        lod_budget = _on(lod_budget, dev, "lod_budget")
-    tail_in = None
-    if max_splats_per_tile is not None and lod_tail:
-        # each splat's alpha integral op·2π/sqrt(det(conic)) (det(conic) =
-        # 1/det(cov2d)); culled splats zeroed
-        cn = ps.conic
-        detc = torch.clamp(cn[:, 0] * cn[:, 2] - cn[:, 1] * cn[:, 1],
-                           min=1e-12)
-        a_full = (ps.opacity * torch.isfinite(ps.depth).to(_F32)
-                  * (2.0 * math.pi) * torch.rsqrt(detc))
-        tail_in = (a_full, ps.color)
+    kn = _frame_knobs(cloud.num_splats, ntx * nty, ky=ky, tile_w=tile_w,
+                      max_splats_per_tile=max_splats_per_tile,
+                      big_splat_cap=big_splat_cap,
+                      mid_splat_cap=mid_splat_cap,
+                      mid_lo_splat_cap=mid_lo_splat_cap,
+                      corner_cap=corner_cap, lod_tail=lod_tail,
+                      lod_tail_decim=lod_tail_decim, exact_seg=exact_seg,
+                      pairs_cap_factor=pairs_cap_factor)
+    ps, records = _project_records(cloud, view, proj, width, height, kn)
     valid = torch.isfinite(ps.depth)
-    binned = _bin_splats(ps.mean2d[:, 0], ps.mean2d[:, 1], ps.radius,
-                         valid, ps.depth, ntx, nty,
-                         cap_pairs, ky=ky, max_per_tile=max_splats_per_tile,
-                         budget=lod_budget, tile_w=tile_w, nseg=exact_seg,
-                         ext=ps.ext, big_cap=big_splat_cap,
-                         mid_cap=mid_splat_cap, mid_lo_cap=mid_lo_splat_cap,
-                         corner_cap=corner_cap,
-                         tail_decim=(lod_tail_decim if max_splats_per_tile
-                                     is not None else None), tail=tail_in)
-    records_tl = (None if binned.pack_idx_tl is None
-                  else _pack_records(records, binned.pack_idx_tl))
-    return FrameLayout(records=_pack_records(records, binned.pack_idx),
-                       binned=binned, ntx=ntx, nty=nty, tile_w=tile_w,
-                       records_tl=records_tl,
-                       n_valid=(None if max_splats_per_tile is None
-                                else valid.sum(dtype=_I32)))
+    lay = _bin_pack(kn, records, ps.mean2d[:, 0], ps.mean2d[:, 1],
+                    ps.radius, valid, ps.depth, ps.ext, ntx, nty,
+                    _budget_on(lod_budget, records.device))
+    if max_splats_per_tile is None:
+        return lay
+    return lay._replace(n_valid=valid.sum(dtype=_I32))
 
 
 def _tail_entry(head_t, visited, tile_w: int, decim: int):
@@ -1576,6 +1606,50 @@ def _tail_entry(head_t, visited, tile_w: int, decim: int):
     (their true entry T is 1) masked to 1."""
     return _decimate_t(torch.where(visited[:, None], head_t, 1.0), tile_w,
                        decim).contiguous()
+
+
+def _composite_frame(lay: FrameLayout, background,
+                     lod_tail_d: int | None = None):
+    """K2, then K3 at decimation ``lod_tail_d`` if the binning has a tail,
+    then :func:`finalize_planes` → (image (Hp, Wp, 3), K2's exec). With
+    ``background=None`` (a sort-last slice): K2 alone, and the image is
+    :func:`_untile_visited`'s background-free colour and T (Hp, Wp, 4)."""
+    b = lay.binned
+    planes, texec = _composite_call(lay.records, b.row_begin, b.row_end,
+                                    lay.ntx, lay.nty, lay.tile_w)
+    if background is None:
+        rgb, t, _ = _untile_visited(planes, b.visited, lay.nty, lay.ntx,
+                                    lay.tile_w)
+        return torch.cat([rgb, t[..., None]], -1), texec
+    tail_d = _TAIL_D if lod_tail_d is None else lod_tail_d
+    tail_planes = None
+    if lay.records_tl is not None:
+        td = _tail_entry(planes[3], b.visited, lay.tile_w, tail_d)
+        planes_tl, _ = _composite_tail_call(
+            lay.records_tl, b.row_begin_tl, b.row_end_tl, td, lay.ntx,
+            lay.nty, lay.tile_w, tail_d)
+        tail_planes = (planes_tl, td, b.kept_tl > 0)
+    return finalize_planes(planes, b.visited, lay.nty, lay.ntx, background,
+                           lay.tile_w, tail_planes, tail_d,
+                           b.tail_slab), texec
+
+
+def _frame_stats(b: Binned, texec, lod: bool, overflow_big=None) -> dict:
+    """``return_stats``' dict from a binning and K2's exec; ``overflow_big``
+    (default ``b.overflow_big``) counts a splat exchange's drops too.
+    ``lossless``: no splat dropped, and no pair (exact) or every truncated
+    tile saturated inside its kept list (LOD), so every dropped pair lies
+    behind T < _T_EPS."""
+    ovb = b.overflow_big if overflow_big is None else overflow_big
+    tile_exec = torch.where(b.visited, texec, 0)
+    if lod:
+        dry = (b.kept < b.count) & (tile_exec >= b.kept) & (b.count > 0)
+        lossless = (~torch.any(dry)) & (ovb == 0)
+    else:
+        lossless = (b.overflow == 0) & (ovb == 0)
+    return {"overflow_pairs": b.overflow, "overflow_big_splats": ovb,
+            "tile_exec": tile_exec, "tile_kept": b.kept,
+            "tile_count": b.count, "lossless": lossless}
 
 
 def render_gaussians(cloud, view, proj, width: int, height: int,
@@ -1625,9 +1699,6 @@ def render_gaussians(cloud, view, proj, width: int, height: int,
     certificate. Every LOD frame adds its valid splats, pairs emitted,
     ``overflow_pairs`` and ``overflow_big_splats`` to the device's frame
     counters (``utils.profiler.count_frame``), stats or not."""
-    _check_channels(max_splats_per_tile, big_splat_cap, mid_splat_cap,
-                    mid_lo_splat_cap, lod_tail_decim)
-    tail_d = _TAIL_D if lod_tail_d is None else lod_tail_d
     if cam_pos is not None and cloud.sh_rest is not None:
         cloud = dataclasses.replace(cloud,
                                     colors=eval_sh_colors(cloud, cam_pos))
@@ -1644,34 +1715,11 @@ def render_gaussians(cloud, view, proj, width: int, height: int,
     b = lay.binned
     if max_splats_per_tile is not None:
         count_frame(lay.n_valid, b.emitted, b.overflow, b.overflow_big)
-    planes, texec = _composite_call(lay.records, b.row_begin, b.row_end,
-                                    lay.ntx, lay.nty, tile_w)
-    tail_planes = None
-    if lay.records_tl is not None:
-        td = _tail_entry(planes[3], b.visited, tile_w, tail_d)
-        planes_tl, _ = _composite_tail_call(
-            lay.records_tl, b.row_begin_tl, b.row_end_tl, td, lay.ntx,
-            lay.nty, tile_w, tail_d)
-        tail_planes = (planes_tl, td, b.kept_tl > 0)
-    img = finalize_planes(planes, b.visited, lay.nty, lay.ntx, background,
-                          tile_w, tail_planes, tail_d,
-                          b.tail_slab)[:height, :width]
+    img, texec = _composite_frame(lay, background, lod_tail_d)
+    img = img[:height, :width]
     if not return_stats:
         return img
-    tile_exec = torch.where(b.visited, texec, 0)
-    if max_splats_per_tile is not None:
-        # certificate: every truncated tile saturated strictly inside its
-        # kept list, so every dropped pair lies behind T < _T_EPS
-        dry = (b.kept < b.count) & (tile_exec >= b.kept) & (b.count > 0)
-        lossless = (~torch.any(dry)) & (b.overflow_big == 0)
-    else:
-        lossless = (b.overflow == 0) & (b.overflow_big == 0)
-    stats = {"overflow_pairs": b.overflow,
-             "overflow_big_splats": b.overflow_big,
-             "tile_exec": tile_exec,
-             "tile_kept": b.kept, "tile_count": b.count,
-             "lossless": lossless}
-    return img, stats
+    return img, _frame_stats(b, texec, max_splats_per_tile is not None)
 
 
 def _diff_layout(means, scales, quats, opacities, colors, view, proj,
@@ -1690,7 +1738,8 @@ def _diff_layout(means, scales, quats, opacities, colors, view, proj,
         ps = ps._replace(mean2d=ps.mean2d + mean2d_offset)
     records = _make_records(ps)
     ntx, nty = num_tiles(width, height, tile_w)
-    cap_pairs = _pad_to(means.shape[0] * KX * ky + ntx * nty * CHUNK, CHUNK)
+    cap_pairs = _frame_knobs(means.shape[0], ntx * nty, ky=ky,
+                             tile_w=tile_w).bins["cap_pairs"]
     mean2d, depth = ps.mean2d.detach(), ps.depth.detach()
     b = _bin_splats(mean2d[:, 0], mean2d[:, 1], ps.radius,
                     torch.isfinite(depth), depth, ntx, nty, cap_pairs, ky=ky,

@@ -183,36 +183,44 @@ def _ring_compact(packet, keep_fn, budget: int, group, d: int, r: int):
 
 
 def _local_packet(cloud, view, proj, width: int, height: int, cam_pos,
-                  ky: int, max_radius, d: int, r: int):
+                  kn, d: int, r: int):
     """This rank's splats ``[r·N/d, (r+1)·N/d)`` (views of the cloud)
-    projected by K1 into (N/d, 17) packets: the (12,) record, radius,
-    depth (+inf where culled), valid and the two per-axis extents."""
+    projected by K1 under the knobs ``kn`` into (N/d, 17) packets: the
+    (12,) record, radius, depth (+inf where culled), valid and the two
+    per-axis extents."""
     nd = cloud.num_splats // d
     part = slice(r * nd, (r + 1) * nd)
     local = dataclasses.replace(
         cloud, **{f.name: (None if getattr(cloud, f.name) is None
                            else getattr(cloud, f.name)[part])
                   for f in dataclasses.fields(cloud)})
-    colors = local.colors
     if cam_pos is not None and local.sh_rest is not None:
-        colors = eval_sh_colors(local, cam_pos)
-    dev = cloud.means.device
-    view = gs_ops._on(view, dev, "view").to(_F32)
-    proj = gs_ops._on(proj, dev, "proj").to(_F32)
-    ps = gs_ops._project_fast(local.means, local.scales, local.quats,
-                              local.opacities, colors, view, proj, width,
-                              height, ky=ky, max_radius=max_radius)
+        local = dataclasses.replace(local,
+                                    colors=eval_sh_colors(local, cam_pos))
+    ps, records = gs_ops._project_records(local, view, proj, width, height,
+                                          kn)
     finite = torch.isfinite(ps.depth)
     aux = torch.stack([ps.radius.to(_F32),
                        torch.where(finite, ps.depth, math.inf),
                        finite.to(_F32), ps.ext[:, 0].to(_F32),
                        ps.ext[:, 1].to(_F32)], -1)
-    return torch.cat([gs_ops._make_records(ps), aux], -1)
+    return torch.cat([records, aux], -1)
 
 
 def _check_split(n: int, d: int) -> None:
     if n % d:
         raise ValueError(f"splat count {n} not divisible by mesh size {d}")
+
+
+def _gather_certificate(stats, group, d: int) -> dict:
+    """The ranks' overflow counts summed and their ``lossless``
+    certificates ANDed, by one gather."""
+    scal = _gather(torch.stack([stats[k].to(_I32) for k in (
+        "overflow_pairs", "overflow_big_splats", "lossless")])[None],
+        group, d)                                             # (d, 3)
+    return {"overflow_pairs": scal[:, 0].sum(dtype=_I32),
+            "overflow_big_splats": scal[:, 1].sum(dtype=_I32),
+            "lossless": torch.all(scal[:, 2] > 0)}
 
 
 def render_gaussians_sharded(cloud, view, proj, width: int, height: int,
@@ -261,74 +269,54 @@ def render_gaussians_sharded(cloud, view, proj, width: int, height: int,
     certificates. ``interpret`` and ``lod_seg`` do not change the output;
     ``exact_seg`` rounds the exact-mode pair cap. Splats must be divisible
     by the mesh size."""
-    if ky is None:
-        ky = gs_ops.KY
     if tile_w is None:
         tile_w = gs_ops.TILE_W
     group, d, r = _axis(mesh)
-    nty_total = _pad_to(_pad_to(height, gs_ops.TILE_H) // gs_ops.TILE_H, d)
+    ntx, nty = gs_ops.num_tiles(width, height, tile_w)
+    nty_total = _pad_to(nty, d)
     nty_local = nty_total // d
     band_px = nty_local * gs_ops.TILE_H
-    ntx = _pad_to(width, tile_w) // tile_w
     n = cloud.num_splats
     _check_split(n, d)
     if splat_exchange not in ("all_gather", "ring"):
         raise ValueError(f"unknown splat_exchange {splat_exchange!r}")
-    gs_ops._check_channels(max_splats_per_tile, big_splat_cap,
-                           mid_splat_cap, mid_lo_splat_cap, lod_tail_decim)
     ring = splat_exchange == "ring"
     if ring:
         ring_budget = ring_budget or 2 * (n // d)
     # emission sees N gathered rows (all_gather) or ring_budget compacted
     # rows (ring) over the band's tiles; the cap only binds in exact mode
-    cap_pairs = gs_ops._exact_pair_cap(
-        ring_budget if ring else n, nty_local * ntx, ky, tile_w, corner_cap,
-        big_splat_cap, mid_splat_cap, mid_lo_splat_cap)
-    nseg = exact_seg if max_splats_per_tile is None else max(lod_seg, 1)
-    cap_pairs = _pad_to(cap_pairs, gs_ops.CHUNK * nseg)
-    max_radius = (float(gs_ops.level2_max_radius(tile_w))
-                  if big_splat_cap is not None else None)
-    tail_d = gs_ops._TAIL_D if lod_tail_d is None else lod_tail_d
+    kn = gs_ops._frame_knobs(
+        ring_budget if ring else n, nty_local * ntx, ky=ky, tile_w=tile_w,
+        max_splats_per_tile=max_splats_per_tile, big_splat_cap=big_splat_cap,
+        mid_splat_cap=mid_splat_cap, mid_lo_splat_cap=mid_lo_splat_cap,
+        corner_cap=corner_cap, lod_tail=lod_tail,
+        lod_tail_decim=lod_tail_decim, exact_seg=exact_seg)
 
-    packet = _local_packet(cloud, view, proj, width, height, cam_pos, ky,
-                           max_radius, d, r)
+    packet = _local_packet(cloud, view, proj, width, height, cam_pos, kn,
+                           d, r)
     dev = packet.device
     y0 = float(r * band_px)
+
+    def meets_band(pkt):
+        """The valid splats whose vertical extent meets this rank's band."""
+        my, ry = pkt[:, gs_ops._MY], pkt[:, _EXT + 1]
+        return ((pkt[:, _VALID] > 0.5) & (my + ry > y0)
+                & (my - ry < y0 + band_px))
+
     ov_ring = torch.zeros((), dtype=_I32, device=dev)
     if ring:
-        def keep_band(pkt):
-            my, ry = pkt[:, gs_ops._MY], pkt[:, _EXT + 1]
-            return ((pkt[:, _VALID] > 0.5) & (my + ry > y0)
-                    & (my - ry < y0 + band_px))
-        packet, _, ov_ring = _ring_compact(packet, keep_band, ring_budget,
+        packet, _, ov_ring = _ring_compact(packet, meets_band, ring_budget,
                                            group, d, r)
     else:
         packet = _gather(packet, group, d)
-    records = packet[:, :gs_ops._ROWS].clone()
-    rad, depth = packet[:, _RAD], packet[:, _DEPTH]
-    valid = packet[:, _VALID] > 0.5
-    ext = packet[:, _EXT:_EXT + 2]
-
-    # this rank's row band: the splats whose vertical extent meets it, in
-    # band coordinates
-    my, ry = records[:, gs_ops._MY], ext[:, 1]
-    in_band = (my + ry > y0) & (my - ry < y0 + band_px)
-    records[:, gs_ops._MY] = my - y0
-
-    tail_in = None
-    if max_splats_per_tile is not None and lod_tail:
-        # each splat's alpha integral from the gathered records (culled
-        # splats carry opacity 0), as render_gaussians computes it
-        detc = torch.clamp(records[:, gs_ops._CA] * records[:, gs_ops._CC]
-                           - records[:, gs_ops._CB] * records[:, gs_ops._CB],
-                           min=1e-12)
-        a_full = (records[:, gs_ops._OP] * (2.0 * math.pi)
-                  * torch.rsqrt(detc))
-        tail_in = (a_full, records[:, gs_ops._CR:gs_ops._CB2 + 1])
+    # this rank's row band in band coordinates (the gathered or compacted
+    # packets are this rank's own copy)
+    in_band = meets_band(packet)
+    packet[:, gs_ops._MY] -= y0
 
     budget_local = None
     if max_splats_per_tile is not None and lod_budget is not None:
-        budget = gs_ops._on(lod_budget, dev, "lod_budget").to(_I32)
+        budget = gs_ops._budget_on(lod_budget, dev)
         full = nty_total * ntx
         if budget.shape[0] < full:
             budget = torch.cat([budget, budget.new_zeros(
@@ -336,47 +324,22 @@ def render_gaussians_sharded(cloud, view, proj, width: int, height: int,
         nl = nty_local * ntx
         budget_local = budget[r * nl:(r + 1) * nl]
 
-    b = gs_ops._bin_splats(
-        records[:, gs_ops._MX], records[:, gs_ops._MY], rad, valid & in_band,
-        depth, ntx, nty_local, cap_pairs, ky=ky,
-        max_per_tile=max_splats_per_tile, budget=budget_local,
-        tile_w=tile_w, nseg=nseg, ext=ext, big_cap=big_splat_cap,
-        mid_cap=mid_splat_cap, mid_lo_cap=mid_lo_splat_cap,
-        corner_cap=corner_cap,
-        tail_decim=(lod_tail_decim if max_splats_per_tile is not None
-                    else None), tail=tail_in)
-    planes, texec = gs_ops._composite_call(
-        gs_ops._pack_records(records, b.pack_idx), b.row_begin, b.row_end,
-        ntx, nty_local, tile_w)
-    tail_planes = None
-    if b.pack_idx_tl is not None:
-        td = gs_ops._tail_entry(planes[3], b.visited, tile_w, tail_d)
-        planes_tl, _ = gs_ops._composite_tail_call(
-            gs_ops._pack_records(records, b.pack_idx_tl), b.row_begin_tl,
-            b.row_end_tl, td, ntx, nty_local, tile_w, tail_d)
-        tail_planes = (planes_tl, td, b.kept_tl > 0)
-    band = gs_ops.finalize_planes(planes, b.visited, nty_local, ntx,
-                                  background, tile_w, tail_planes, tail_d,
-                                  b.tail_slab)      # (band_px, Wp, 3)
+    records = packet[:, :gs_ops._ROWS]
+    lay = gs_ops._bin_pack(kn, records, records[:, gs_ops._MX],
+                           records[:, gs_ops._MY], packet[:, _RAD], in_band,
+                           packet[:, _DEPTH], packet[:, _EXT:_EXT + 2], ntx,
+                           nty_local, budget_local)
+    band, texec = gs_ops._composite_frame(lay, background, lod_tail_d)
     img = _gather(band, group, d)[:height, :width]
     if not return_stats:
         return img
 
-    tile_exec = torch.where(b.visited, texec, 0)
-    ovb = b.overflow_big + ov_ring
-    if max_splats_per_tile is not None:
-        dry = (b.kept < b.count) & (tile_exec >= b.kept) & (b.count > 0)
-        cert = (~torch.any(dry)) & (ovb == 0)
-    else:
-        cert = (b.overflow == 0) & (ovb == 0)
-    # per-band scalars and tile stats, one gather each
-    scal = _gather(torch.stack([b.overflow.to(_I32), ovb.to(_I32),
-                                cert.to(_I32)])[None], group, d)   # (d, 3)
-    tiles = _gather(torch.stack([tile_exec.to(_I32), b.kept.to(_I32),
-                                 b.count.to(_I32)], -1), group, d)
-    return img, {"overflow_pairs": scal[:, 0].sum(dtype=_I32),
-                 "overflow_big_splats": scal[:, 1].sum(dtype=_I32),
-                 "lossless": torch.all(scal[:, 2] > 0),
+    b = lay.binned
+    st = gs_ops._frame_stats(b, texec, max_splats_per_tile is not None,
+                             b.overflow_big + ov_ring)
+    tiles = _gather(torch.stack([st[k].to(_I32) for k in (
+        "tile_exec", "tile_kept", "tile_count")], -1), group, d)
+    return img, {**_gather_certificate(st, group, d),
                  "tile_exec": tiles[:, 0].contiguous(),
                  "tile_kept": tiles[:, 1].contiguous(),
                  "tile_count": tiles[:, 2].contiguous()}
@@ -413,25 +376,19 @@ def render_gaussians_depth_sliced(cloud, view, proj, width: int,
     single-device frame's order. With each slice's own range and the
     ring's order, 0.24% of the pixels of a 1M-splat fog frame at D = 4
     were off the single-device frame by more than 1e-4 (max 3.4e-2)."""
-    if ky is None:
-        ky = gs_ops.KY
     if tile_w is None:
         tile_w = gs_ops.TILE_W
     group, d, r = _axis(mesh)
-    nty = _pad_to(height, gs_ops.TILE_H) // gs_ops.TILE_H
-    ntx = _pad_to(width, tile_w) // tile_w
+    ntx, nty = gs_ops.num_tiles(width, height, tile_w)
     n = cloud.num_splats
     _check_split(n, d)
     budget = slice_budget or 2 * (n // d)
-    cap_pairs = _pad_to(gs_ops._exact_pair_cap(
-        budget, nty * ntx, ky, tile_w, None, big_splat_cap or None, None,
-        None), gs_ops.CHUNK)
-    max_radius = (float(gs_ops.level2_max_radius(tile_w))
-                  if big_splat_cap is not None else None)
+    kn = gs_ops._frame_knobs(budget, nty * ntx, ky=ky, tile_w=tile_w,
+                             big_splat_cap=big_splat_cap)
     nbins = 256
 
-    packet = _local_packet(cloud, view, proj, width, height, cam_pos, ky,
-                           max_radius, d, r)
+    packet = _local_packet(cloud, view, proj, width, height, cam_pos, kn,
+                           d, r)
     dev = packet.device
 
     # global depth range (one MAX all_reduce) and a SUM-reduced histogram
@@ -461,23 +418,16 @@ def render_gaussians_depth_sliced(cloud, view, proj, width: int,
 
     sl, _, ov_ring = _ring_compact(packet, mine, budget, group, d, r)
 
-    # this slice's full-frame exact composite, background-free planes
-    records = sl[:, :gs_ops._ROWS]
+    # this slice's full-frame exact composite, background-free planes;
     # the depth keys over the frame's range, not the slice's: every pair
     # gets the single-device frame's key, so tied keys keep its order
-    b = gs_ops._bin_splats(records[:, gs_ops._MX], records[:, gs_ops._MY],
-                           sl[:, _RAD], sl[:, _VALID] > 0.5, sl[:, _DEPTH],
-                           ntx, nty, cap_pairs, ky=ky, tile_w=tile_w,
-                           big_cap=big_splat_cap, ext=sl[:, _EXT:_EXT + 2],
+    records = sl[:, :gs_ops._ROWS]
+    lay = gs_ops._bin_pack(kn, records, records[:, gs_ops._MX],
+                           records[:, gs_ops._MY], sl[:, _RAD],
+                           sl[:, _VALID] > 0.5, sl[:, _DEPTH],
+                           sl[:, _EXT:_EXT + 2], ntx, nty,
                            depth_range=(dmin, dmax))
-    planes, _ = gs_ops._composite_call(
-        gs_ops._pack_records(records, b.pack_idx), b.row_begin, b.row_end,
-        ntx, nty, tile_w)
-    vis = b.visited[:, None]
-    cpl = torch.stack([gs_ops._untile(torch.where(vis, planes[k], fill), nty,
-                                      ntx, tile_w)
-                       for k, fill in ((0, 0.0), (1, 0.0), (2, 0.0),
-                                       (3, 1.0))], -1)   # (Hp, Wp, 4)
+    cpl, texec = gs_ops._composite_frame(lay, None)      # (Hp, Wp, 4)
 
     # sort-last combine: the slices fold front to back
     hp = cpl.shape[0]
@@ -492,11 +442,9 @@ def render_gaussians_depth_sliced(cloud, view, proj, width: int,
     img = (c + t[..., None] * bg)[:height, :width]
     if not return_stats:
         return img
-    ov = _gather(torch.stack([b.overflow.to(_I32),
-                              (b.overflow_big + ov_ring).to(_I32)])[None],
-                 group, d).sum(0, dtype=_I32)
-    return img, {"overflow_pairs": ov[0], "overflow_big_splats": ov[1],
-                 "lossless": (ov[0] == 0) & (ov[1] == 0)}
+    b = lay.binned
+    st = gs_ops._frame_stats(b, texec, False, b.overflow_big + ov_ring)
+    return img, _gather_certificate(st, group, d)
 
 
 def render_mesh_sharded(pipe, geo, uniforms, resources, width: int,

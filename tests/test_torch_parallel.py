@@ -41,8 +41,10 @@ Tolerances and why:
   mean).
 """
 
+import ast
 import os
 import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -272,6 +274,34 @@ def test_slice_keys_are_the_frames():
 def test_depth_sliced_starved_budget_counts_drops(run):
     assert int(run["sliced16.overflow_big_splats"]) > 0
     assert not bool(run["sliced16.lossless"])
+
+
+# ---- the seam with ops/gs.py ---------------------------------------------------
+
+#: the frame spine of ``ops/gs.py`` and the record columns that the packet
+#: and the band shift read: the only private names of ``ops.gs`` that
+#: ``parallel/sharded.py`` may use
+SPINE = {"_frame_knobs", "_project_records", "_budget_on", "_bin_pack",
+         "_composite_frame", "_frame_stats", "_ROWS", "_MX", "_MY"}
+
+
+def test_sharded_uses_only_the_frame_spine():
+    """The row-band and depth-sliced renders build on the frame spine of
+    ``ops/gs.py`` and copy none of it: the source names no private name of
+    ``ops.gs`` outside ``SPINE``."""
+    path = (Path(__file__).resolve().parents[1] / "ray_eater_tpu_torch"
+            / "parallel" / "sharded.py")
+    tree = ast.parse(path.read_text())
+    imports = [n for n in ast.walk(tree) if isinstance(n, ast.ImportFrom)]
+    alias = {a.asname or a.name for n in imports if n.module == "ops"
+             for a in n.names if a.name == "gs"}
+    assert alias == {"gs_ops"}
+    assert not [a.name for n in imports if n.module == "ops.gs"
+                for a in n.names if a.name.startswith("_")]
+    used = {n.attr for n in ast.walk(tree)
+            if isinstance(n, ast.Attribute) and isinstance(n.value, ast.Name)
+            and n.value.id == "gs_ops" and n.attr.startswith("_")}
+    assert used and used <= SPINE, sorted(used - SPINE)
 
 
 # ---- D = 2: a one-hop ring --------------------------------------------------
