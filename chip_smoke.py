@@ -409,8 +409,9 @@ def check_composite(torch, gs, name: str, replaces: str, call, plain, args,
                     geom, tiles, entry_planes: int, label: str, reps: int,
                     foot=None):
     """A composite kernel (K2 or K3) vs its plain version on one frame's
-    packed records and row ranges (``args``, sample grid ``geom`` as in
-    :func:`pair_counts`): planes compared on the ``tiles`` mask, exec
+    record table, layout (the splat id of each row) and row ranges
+    (``args``, sample grid ``geom`` as in :func:`pair_counts`): planes
+    compared on the ``tiles`` mask, exec
     counts on every tile, then both timed. ``entry_planes`` counts the
     (ntiles, pix) planes the kernel reads besides the records (K3's entry
     T) for the bound; with K2's ``foot``, the share of (warp, row) pairs
@@ -424,13 +425,13 @@ def check_composite(torch, gs, name: str, replaces: str, call, plain, args,
     _, ntiles, pix = pk.shape
     same = float((ek == ep).float().mean())
     executed = int(ek.sum())
-    with_rows = args[2] > args[1]
+    with_rows = args[3] > args[2]
     skipped = int((with_rows & (ek == 0)).sum())
-    cnt = pair_counts(torch, gs, args[0], args[1], ek, geom, foot)
+    cnt = pair_counts(torch, gs, args[0][args[1]], args[2], ek, geom, foot)
     log(f"{name} vs plain [{label}]: {ntiles} tiles x {pix} samples, "
         f"{int(with_rows.sum())} with rows ({skipped} skipped at entry), "
         f"{int(tiles.sum())} compared, "
-        f"{args[0].shape[0]} packed rows, {executed} executed (longest tile "
+        f"{args[1].shape[0]} layout rows, {executed} executed (longest tile "
         f"{int(ek.max())}); planes max abs {max_abs:.3e} mean abs "
         f"{mean_abs:.3e}; exec equal on {same * 100:.3f}% of tiles; "
         f"{cnt['reach']} of {cnt['pairs']} executed pair-samples can reach "
@@ -456,35 +457,40 @@ def check_composite(torch, gs, name: str, replaces: str, call, plain, args,
         exps=cnt["reach"])
 
 
-def check_k2(torch, gs, lay, label: str, reps: int):
-    """K2 vs its plain version on one frame's head layout, and the share of
-    (warp, row) pairs its warp row cull skipped."""
+def check_k2(torch, gs, lay, label: str, reps: int, packed: bool = False):
+    """K2 vs its plain version on one frame's head layout (``packed``: the
+    training frame's packed rows, under an identity layout), and the share
+    of (warp, row) pairs its warp row cull skipped."""
     b = lay.binned
+    idx = (torch.arange(lay.records.shape[0], dtype=torch.int32,
+                        device=lay.records.device) if packed else b.pack_idx)
     log(f"K2 [{label}]: {int(b.visited.sum())} visited tiles, "
         f"{int(b.kept.sum())} pairs kept")
     return check_composite(
         torch, gs, "K2 composite", "ray_eater_tpu/ops/gs.py:1239",
         gs._composite_call, gs._composite_plain,
-        (lay.records, b.row_begin, b.row_end, lay.ntx, lay.nty, lay.tile_w),
+        (lay.records, idx, b.row_begin, b.row_end, lay.ntx, lay.nty,
+         lay.tile_w),
         (lay.ntx, lay.nty, lay.tile_w, 1), b.visited, 0, label, reps,
         foot=gs._composite_footprint(lay.tile_w))
 
 
 def check_k3(torch, gs, lay, decim: int, label: str, reps: int):
-    """K3 vs its plain version on one frame's packed tail records, tail row
-    ranges and the head's decimated entry T (K2 on the head layout)."""
+    """K3 vs its plain version on one frame's record table, tail layout,
+    tail row ranges and the head's decimated entry T (K2 on the head
+    layout)."""
     b = lay.binned
-    head, _ = gs._composite_call(lay.records, b.row_begin, b.row_end,
-                                 lay.ntx, lay.nty, lay.tile_w)
+    head, _ = gs._composite_call(lay.records, b.pack_idx, b.row_begin,
+                                 b.row_end, lay.ntx, lay.nty, lay.tile_w)
     td = gs._tail_entry(head[3], b.visited, lay.tile_w, decim)
-    args = (lay.records_tl, b.row_begin_tl, b.row_end_tl, td, lay.ntx,
-            lay.nty, lay.tile_w, decim)
+    args = (lay.records, b.pack_idx_tl, b.row_begin_tl, b.row_end_tl, td,
+            lay.ntx, lay.nty, lay.tile_w, decim)
     # the kernel's first pass composites every chunk of a tile that is not
     # skipped at entry, `ctas` CTAs a tile; its merge stops at the vote
     ctas, threads, resident = gs._composite_shape(3, lay.tile_w, decim)
     _, ek = gs._composite_tail_call(*args)
-    begin, _, first, nch = gs._chunk_spans(args[1], args[2],
-                                           args[0].shape[0])
+    begin, _, first, nch = gs._chunk_spans(args[2], args[3],
+                                           args[1].shape[0])
     ran = gs._executed_chunks(begin, first, ek)
     past = int(torch.where(ran > 0, nch - ran, 0).sum())
     log(f"K3 [{label}]: decim {decim}, {int(b.kept_tl.sum())} tail pairs "
@@ -2487,7 +2493,7 @@ def run() -> int:
         f"kept of {int(lay.binned.count.sum())}, MSE {loss0:.6e}, built in "
         f"{time.perf_counter() - t0:.2f} s")
     k2_train = check_k2(torch, gs, lay, "training frame, tile_w 128",
-                        reps=20)
+                        reps=20, packed=True)
     k4 = check_k4(torch, gs, lay, args, k4_out, "training frame", reps=20)
     k5 = check_k5(torch, gs, args, k4_out, dplanes, "training frame",
                   reps=20)

@@ -12,14 +12,21 @@
 // chunks from its first), one (pixd,) row per executed chunk; chunks after
 // saturation write nothing and K5 never reads them. The TPU ran a
 // sequential grid over scalar-prefetched steps and a doubling-scan
-// transmittance prefix; here a tile walks its packed rows [row_begin,
-// row_end) in order, so the prefix becomes a running product (a
+// transmittance prefix; here a tile walks its rows [row_begin, row_end) of
+// the layout in order, so the prefix becomes a running product (a
 // reassociation of the same sum). K3's 8-chunk grid steps reduce to the
 // same per-chunk walk: tile bases are 128-row aligned and the TPU kernel
 // re-checked saturation between its sub-chunks.
 //
+// K2 and K3 stage each row through its splat id: row r of the layout is
+// record idx[r] of the (N, 12) record table, so no packed copy of the
+// records is ever made (the ids are the binning's, read in the staging,
+// where the double buffer hides their latency as it hides the rows'). K4
+// reads the rows the training frame packed (row r is record r), whose
+// gather autograd differentiates.
+//
 // Semantics kept because they decide the image or the stats:
-//   * chunks are cut at absolute multiples of 128 rows of the packed array;
+//   * chunks are cut at absolute multiples of 128 rows of the layout;
 //   * a tile whose every sample enters below T = 1e-4 runs nothing (K3: a
 //     tail behind a saturated head is skipped; K2 and K4 enter at T = 1);
 //   * after each chunk, and only then, the tile stops when every sample of
@@ -55,9 +62,10 @@
 //     and exec counts the rows of chunks run, not live rows. Footprints
 //     nearer a square than whole tile rows let more rows miss a warp;
 //   * the records are double-buffered: while one chunk composites, cp.async
-//     copies the next one's rows (three 16-byte copies per 48-byte row;
-//     rows are 16-byte aligned, the entry points check) into the other
-//     buffer; a tile that stops at the vote drops that copy;
+//     copies the next one's rows (three 16-byte copies per 48-byte row,
+//     each row's id read first; rows are 16-byte aligned, the entry points
+//     check) into the other buffer; a tile that stops at the vote drops
+//     that copy;
 //   * a row's cull threshold is computed once for each group of 32 rows
 //     (lane l that of the group's row l, then shuffled), and a sample below
 //     1/255 takes the update with alpha 0, so the loop has no per-row test
@@ -198,13 +206,17 @@ __device__ __forceinline__ T* cluster_map(T* p, int rank) {
   return reinterpret_cast<T*>(r);
 }
 
-// Rows [lo, lo + n) of the records into dst, three 16-byte copies a row,
-// as one cp.async group.
+// Rows [lo, lo + n) of the layout into dst, three 16-byte copies a row, as
+// one cp.async group: row r is record idx[r] of the table rec4 (K2, K3), or
+// record r where idx is null (K4's packed rows).
 template <int THREADS>
 __device__ __forceinline__ void stage_rows(float4 (*dst)[3], const float4* __restrict__ rec4,
-                                           int lo, int n) {
-  for (int q = threadIdx.x; q < 3 * n; q += THREADS)
-    cp_async16(&dst[0][0] + q, rec4 + (size_t)lo * 3 + q);
+                                           const int* __restrict__ idx, int lo, int n) {
+  for (int q = threadIdx.x; q < 3 * n; q += THREADS) {
+    const int r = lo + q / 3;
+    const size_t rec = idx ? (size_t)idx[r] : (size_t)r;
+    cp_async16(&dst[0][0] + q, rec4 + rec * 3 + q % 3);
+  }
   cp_async_commit();
 }
 
@@ -279,7 +291,7 @@ __device__ __forceinline__ void composite_rows(const float4* rows, int n, float 
 // columns by 4*PPT rows at column (g mod TW/8)*8, row (g div TW/8)*4*PPT.
 template <int TW, int PPT, int CLUSTER, bool CKPT>
 __global__ void __launch_bounds__(kTileH * TW / (PPT * CLUSTER))
-tile_composite_kernel(const float4* __restrict__ rec4, int nrows,
+tile_composite_kernel(const float4* __restrict__ rec4, const int* __restrict__ idx, int nrows,
                       const int* __restrict__ row_begin, const int* __restrict__ row_end,
                       const int* __restrict__ ck_off, float* __restrict__ out,
                       int* __restrict__ exec_out, float* __restrict__ ckpt, int ntiles,
@@ -315,7 +327,7 @@ tile_composite_kernel(const float4* __restrict__ rec4, int nrows,
     const int first = (b / kChunk) * kChunk;
     float* ck = nullptr;
     if constexpr (CKPT) ck = ckpt + (size_t)ck_off[tile] * kPix;
-    stage_rows<kThreads>(s[0], rec4, b, min(e, first + kChunk) - b);
+    stage_rows<kThreads>(s[0], rec4, idx, b, min(e, first + kChunk) - b);
     int buf = 0;
     for (int base = first; base < e; base += kChunk, buf ^= 1) {
       const int lo = max(b, base);
@@ -328,7 +340,7 @@ tile_composite_kernel(const float4* __restrict__ rec4, int nrows,
       }
       if (next < e) {
         // buf ^ 1 was last read before the previous chunk's vote
-        stage_rows<kThreads>(s[buf ^ 1], rec4, next, min(e, next + kChunk) - next);
+        stage_rows<kThreads>(s[buf ^ 1], rec4, idx, next, min(e, next + kChunk) - next);
         cp_async_wait<1>();
       } else {
         cp_async_wait<0>();
@@ -384,13 +396,13 @@ struct TailGrid {
 // (r, g, b, T_loc) into part[slot(t, j)] (4 planes of pixd floats), slot(t,
 // j) = first_t/128 + t + j, first_t the 128-row block holding row_begin[t]:
 // distinct for every (t, j) of row ranges that ascend with t and do not
-// overlap (every packed layout of the port), and below ceil(nrows/128) +
-// ntiles. A tile that enters saturated composites nothing.
+// overlap (every layout of the port), and below ceil(nrows/128) + ntiles.
+// A tile that enters saturated composites nothing.
 template <int TW, int D>
 __global__ void __launch_bounds__(TailGrid<TW, D>::kThreads)
-tail_chunk_kernel(const float4* __restrict__ rec4, int nrows, const int* __restrict__ row_begin,
-                  const int* __restrict__ row_end, const float* __restrict__ t_entry,
-                  float* __restrict__ part, int ntx) {
+tail_chunk_kernel(const float4* __restrict__ rec4, const int* __restrict__ idx, int nrows,
+                  const int* __restrict__ row_begin, const int* __restrict__ row_end,
+                  const float* __restrict__ t_entry, float* __restrict__ part, int ntx) {
   using G = TailGrid<TW, D>;
   constexpr int PPT = G::kPpt;
   constexpr int kPix = G::kPix;
@@ -409,15 +421,15 @@ tail_chunk_kernel(const float4* __restrict__ rec4, int nrows, const int* __restr
   const int y0 = (warp / kWarpsX) * G::kFootH + lane / kFootW;
   const float half = 0.5f * (float)D;
   const float px = (float)(x * D + (tile % ntx) * TW) + half;
-  int idx[PPT];
+  int at[PPT];
   float py[PPT];
   int sat = 1;
 #pragma unroll
   for (int k = 0; k < PPT; ++k) {
     const int y = y0 + kLanesY * k;
-    idx[k] = y * G::kTwd + x;
+    at[k] = y * G::kTwd + x;
     py[k] = (float)(y * D + (tile / ntx) * kTileH) + half;
-    sat &= (t_entry[(size_t)tile * kPix + idx[k]] < kTEps);
+    sat &= (t_entry[(size_t)tile * kPix + at[k]] < kTEps);
   }
   if (__syncthreads_and(sat)) return;   // entry skip
   auto rows = [&](int j, int& lo) {     // rows [lo, lo + n) of chunk j
@@ -426,7 +438,7 @@ tail_chunk_kernel(const float4* __restrict__ rec4, int nrows, const int* __restr
   };
   int lo;
   int n = rows(first_j, lo);
-  stage_rows<G::kThreads>(s[0], rec4, lo, n);
+  stage_rows<G::kThreads>(s[0], rec4, idx, lo, n);
   float* dst = part + ((size_t)(first / kChunk) + tile) * 4 * kPix;
   int buf = 0;
   for (int j = first_j; j < nch; j += kTailSplit, buf ^= 1) {
@@ -434,7 +446,7 @@ tail_chunk_kernel(const float4* __restrict__ rec4, int nrows, const int* __restr
     if (j + kTailSplit < nch) {
       int nlo;
       const int nn = rows(j + kTailSplit, nlo);
-      stage_rows<G::kThreads>(s[buf ^ 1], rec4, nlo, nn);
+      stage_rows<G::kThreads>(s[buf ^ 1], rec4, idx, nlo, nn);
       cp_async_wait<1>();
     } else {
       cp_async_wait<0>();
@@ -450,10 +462,10 @@ tail_chunk_kernel(const float4* __restrict__ rec4, int nrows, const int* __restr
     float* o = dst + (size_t)j * 4 * kPix;
 #pragma unroll
     for (int k = 0; k < PPT; ++k) {
-      o[idx[k]] = cr[k];
-      o[kPix + idx[k]] = cg[k];
-      o[2 * kPix + idx[k]] = cb[k];
-      o[3 * kPix + idx[k]] = T[k];
+      o[at[k]] = cr[k];
+      o[kPix + at[k]] = cg[k];
+      o[2 * kPix + at[k]] = cb[k];
+      o[3 * kPix + at[k]] = T[k];
     }
     __syncthreads();   // before the next prefetch overwrites this buffer
   }
@@ -606,39 +618,41 @@ int with_tail(int tile_w, int decim, F&& f) {
 }
 
 template <int TW>
-void launch_head(const float4* r, int nrows, const int* rb, const int* re, float* o, int* ex,
-                 int ntiles, int ntx, cudaStream_t st) {
+void launch_head(const float4* r, const int* idx, int nrows, const int* rb, const int* re,
+                 float* o, int* ex, int ntiles, int ntx, cudaStream_t st) {
   constexpr int ppt = head_ppt(TW);
   tile_composite_kernel<TW, ppt, 1, false><<<ntiles, kTileH * TW / ppt, 0, st>>>(
-      r, nrows, rb, re, nullptr, o, ex, nullptr, ntiles, ntx);
+      r, idx, nrows, rb, re, nullptr, o, ex, nullptr, ntiles, ntx);
 }
 
 }  // namespace
 
-// K2. rec (nrows, 12) f32 packed records, 16-byte aligned; row_begin/
-// row_end (ntiles,) i32; out (4, ntiles, 32*tile_w) f32 = r, g, b, T
-// planes; exec (ntiles,) i32. tile_w must be 32, 64 or 128. Returns
+// K2. rec (N, 12) f32 record table, 16-byte aligned; idx (nrows,) i32, the
+// layout: row r is record idx[r], every id below N; row_begin/row_end
+// (ntiles,) i32 rows of the layout; out (4, ntiles, 32*tile_w) f32 = r, g,
+// b, T planes; exec (ntiles,) i32. tile_w must be 32, 64 or 128. Returns
 // cudaGetLastError() after the launch.
-extern "C" int gs_composite(const void* rec, int nrows, const void* row_begin,
+extern "C" int gs_composite(const void* rec, const void* idx, int nrows, const void* row_begin,
                             const void* row_end, void* out, void* exec, int ntiles,
                             int ntx, int tile_w, void* stream) {
   if ((uintptr_t)rec % 16 != 0) return (int)cudaErrorMisalignedAddress;
   if (ntiles > 0) {
     cudaStream_t st = (cudaStream_t)stream;
     const float4* r = (const float4*)rec;
+    const int* ix = (const int*)idx;
     const int* rb = (const int*)row_begin;
     const int* re = (const int*)row_end;
     float* o = (float*)out;
     int* ex = (int*)exec;
     switch (tile_w) {
       case 32:
-        launch_head<32>(r, nrows, rb, re, o, ex, ntiles, ntx, st);
+        launch_head<32>(r, ix, nrows, rb, re, o, ex, ntiles, ntx, st);
         break;
       case 64:
-        launch_head<64>(r, nrows, rb, re, o, ex, ntiles, ntx, st);
+        launch_head<64>(r, ix, nrows, rb, re, o, ex, ntiles, ntx, st);
         break;
       case 128:
-        launch_head<128>(r, nrows, rb, re, o, ex, ntiles, ntx, st);
+        launch_head<128>(r, ix, nrows, rb, re, o, ex, ntiles, ntx, st);
         break;
       default:
         return (int)cudaErrorInvalidValue;
@@ -694,16 +708,16 @@ extern "C" int gs_composite_shape(int kernel, int tile_w, int decim, int* ctas, 
   return (int)cudaErrorInvalidValue;
 }
 
-// K3. As K2, at decim 1, 2 or 4, entered at t_entry (ntiles, pixd) f32;
-// out (4, ntiles, pixd) f32 with absolute T, pixd = (32/decim)*(tile_w/decim).
-// Row ranges ascend with the tile index and do not overlap. scratch holds
-// (ceil(nrows/128) + ntiles, 4, pixd) f32 of chunk partials between the two
-// launches. Returns the first launch's error, else cudaGetLastError() after
-// the second.
-extern "C" int gs_composite_tail(const void* rec, int nrows, const void* row_begin,
-                                 const void* row_end, const void* t_entry, void* out,
-                                 void* exec, int ntiles, int ntx, int tile_w, int decim,
-                                 void* stream, void* scratch) {
+// K3. As K2 (records fetched through idx), at decim 1, 2 or 4, entered at
+// t_entry (ntiles, pixd) f32; out (4, ntiles, pixd) f32 with absolute T,
+// pixd = (32/decim)*(tile_w/decim). Row ranges ascend with the tile index
+// and do not overlap. scratch holds (ceil(nrows/128) + ntiles, 4, pixd) f32
+// of chunk partials between the two launches. Returns the first launch's
+// error, else cudaGetLastError() after the second.
+extern "C" int gs_composite_tail(const void* rec, const void* idx, int nrows,
+                                 const void* row_begin, const void* row_end,
+                                 const void* t_entry, void* out, void* exec, int ntiles,
+                                 int ntx, int tile_w, int decim, void* stream, void* scratch) {
   if ((uintptr_t)rec % 16 != 0) return (int)cudaErrorMisalignedAddress;
   return with_tail(tile_w, decim, [&](auto k) {
     using K = decltype(k);
@@ -713,8 +727,8 @@ extern "C" int gs_composite_tail(const void* rec, int nrows, const void* row_beg
     const int* re = (const int*)row_end;
     const float* te = (const float*)t_entry;
     float* part = (float*)scratch;
-    K::chunk()<<<ntiles * K::kSplit, K::kThreads, 0, st>>>((const float4*)rec, nrows, rb, re,
-                                                           te, part, ntx);
+    K::chunk()<<<ntiles * K::kSplit, K::kThreads, 0, st>>>(
+        (const float4*)rec, (const int*)idx, nrows, rb, re, te, part, ntx);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
     K::merge()<<<ntiles, K::kThreads, 0, st>>>(nrows, rb, re, te, part, (float*)out,
@@ -723,7 +737,8 @@ extern "C" int gs_composite_tail(const void* rec, int nrows, const void* row_beg
   });
 }
 
-// K4. As K2, and at the top of every chunk it runs, tile t writes its T
+// K4. As K2 on packed records: rec (nrows, 12) f32, row r of the layout is
+// record r. At the top of every chunk it runs, tile t writes its T
 // into ckpt row ck_off[t] + j (j: the chunk's index among the tile's
 // chunks, counted from the 128-row block holding row_begin[t]).
 // ck_off (ntiles,) i32; ckpt (nslots, 32*tile_w) f32. Returns the launch's
@@ -738,9 +753,10 @@ extern "C" int gs_composite_ckpt(const void* rec, int nrows, const void* row_beg
     if (ntiles == 0) return (int)cudaGetLastError();
     ClusterLaunch l(K::kernel(), ntiles, K::kThreads, K::kCluster, (cudaStream_t)stream);
     if (l.err == cudaSuccess)
-      l.err = cudaLaunchKernelEx(&l.cfg, K::kernel(), (const float4*)rec, nrows,
-                                 (const int*)row_begin, (const int*)row_end, (const int*)ck_off,
-                                 (float*)out, (int*)exec, (float*)ckpt, ntiles, ntx);
+      l.err = cudaLaunchKernelEx(&l.cfg, K::kernel(), (const float4*)rec, (const int*)nullptr,
+                                 nrows, (const int*)row_begin, (const int*)row_end,
+                                 (const int*)ck_off, (float*)out, (int*)exec, (float*)ckpt,
+                                 ntiles, ntx);
     const cudaError_t last = cudaGetLastError();
     return (int)(l.err != cudaSuccess ? l.err : last);
   });

@@ -13,11 +13,12 @@ One frame runs:
    to the positional ``cap_pairs`` drop); the LOD mode grants each tile a
    block-granular share of a global pool, and optionally a second pool for
    the decimated tail (:func:`_bin_splats`).
-3. **Pack** — one row gather of the (N, 12) record table into packed order
-   (and one for the tail rows).
+3. **Layout** — the binning's splat id of every row of the head's (and
+   the tail's) layout; no packed copy of the records is made.
 4. **Composite** — kernel K2 (``csrc/gs_composite.cu``): one CTA per tile
-   walks the tile's packed rows front to back, with tile-level saturation
-   checked at 128-row chunk ends (:func:`_composite_call`).
+   walks the tile's rows front to back, fetching each row of the (N, 12)
+   record table through its splat id, with tile-level saturation checked
+   at 128-row chunk ends (:func:`_composite_call`).
 5. **Tail** — kernel K3 (same source): the tail rows composited on a
    decim×decim-decimated grid, entered at the head's per-quad mean
    transmittance (:func:`_composite_tail_call`).
@@ -550,8 +551,8 @@ def _aligned_pack_idx(startc, kept, cap_steps: int, sorted_splat):
     """Aligned LOD layout: tile t's kept list starts at its own 128-row
     block boundary ``blk_off[t] * CHUNK`` of the packed array, so a block
     belongs to one tile. Returns (pack_idx (cap_steps*CHUNK,) splat indices,
-    row_begin (ntiles,)). Rows past a tile's kept list point at splat 0 and
-    are never read."""
+    row_begin (ntiles,)). Rows past a tile's kept list point at the first
+    sorted pair's splat and are never read."""
     dev = kept.device
     ntiles = kept.shape[0]
     nblocks_t = (kept + CHUNK - 1) // CHUNK
@@ -627,7 +628,7 @@ def _tail_sums(aux_sorted, lo, hi):
 
 
 class Binned(NamedTuple):
-    pack_idx: torch.Tensor    # (R,) splat index of each packed row
+    pack_idx: torch.Tensor    # (R,) i32 splat id of each row of the layout
     row_begin: torch.Tensor   # (ntiles,) i32 first packed row of each tile
     row_end: torch.Tensor     # (ntiles,) i32 one past its last kept row
     visited: torch.Tensor     # (ntiles,) bool: kept > 0
@@ -635,7 +636,7 @@ class Binned(NamedTuple):
     kept: torch.Tensor        # (ntiles,) i32 pairs kept
     count: torch.Tensor       # (ntiles,) i32 pairs emitted
     overflow_big: torch.Tensor    # () splats the side channels dropped
-    # decimated tail (None without ``tail_decim``): its own aligned pack
+    # decimated tail (None without ``tail_decim``): its own aligned layout
     pack_idx_tl: torch.Tensor | None = None
     row_begin_tl: torch.Tensor | None = None
     row_end_tl: torch.Tensor | None = None
@@ -850,11 +851,6 @@ def _bin_splats(mx, my, rad, valid, depth, ntx: int, nty: int,
                   emitted=start[ntiles], **tail_tl)
 
 
-def _pack_records(records: torch.Tensor, pack_idx: torch.Tensor):
-    """One row gather of the (N, 12) records into packed order."""
-    return records[pack_idx]
-
-
 # ---------------------------------------------------------------------------
 # K2 (head) and K3 (decimated tail): composite
 # ---------------------------------------------------------------------------
@@ -891,7 +887,8 @@ def _composite_grid_plain(records, row_begin, row_end, t_entry, ntx: int,
                           ck_off=None, merge: bool = False):
     """Plain PyTorch composite of every tile's packed rows over a sample
     grid decimated by ``decim``, the body of K2's (``decim`` 1, ``t_entry``
-    None: T starts at 1), K3's and K4's plain versions. Returns (planes (4,
+    None: T starts at 1), K3's and K4's plain versions (K2's and K3's on
+    the record table gathered by the layout's splat ids). Returns (planes (4,
     ntiles, pixd) f32 = r, g, b, absolute T; exec (ntiles,) i32), pixd =
     (32/decim)·(tile_w/decim); ``t_entry`` is (ntiles, pixd). With ``ckpt``
     (nslots, pixd), each tile's T at the entry of its chunk j is written to
@@ -960,33 +957,36 @@ def _composite_grid_plain(records, row_begin, row_end, t_entry, ntx: int,
     return torch.stack([rgb[0], rgb[1], rgb[2], tt]), exec_
 
 
-def _composite_plain(records, row_begin, row_end, ntx: int, nty: int,
+def _composite_plain(records, idx, row_begin, row_end, ntx: int, nty: int,
                      tile_w: int = TILE_W):
     """Plain PyTorch version of K2: (planes (4, ntiles, 32*tile_w) f32 =
-    r, g, b, T; exec (ntiles,) i32), every tile entered at T = 1."""
-    return _composite_grid_plain(records, row_begin, row_end, None, ntx, nty,
-                                 tile_w, 1)
+    r, g, b, T; exec (ntiles,) i32), every tile entered at T = 1. Row r of
+    the layout is record ``idx[r]`` of the (N, 12) ``records``."""
+    return _composite_grid_plain(records[idx], row_begin, row_end, None, ntx,
+                                 nty, tile_w, 1)
 
 
-def _composite_tail_plain(records, row_begin, row_end, t_entry, ntx: int,
-                          nty: int, tile_w: int = TILE_W, decim: int = 2):
+def _composite_tail_plain(records, idx, row_begin, row_end, t_entry,
+                          ntx: int, nty: int, tile_w: int = TILE_W,
+                          decim: int = 2):
     """Plain PyTorch version of K3: (planes (4, ntiles, pixd) f32 = r, g,
     b, absolute T; exec (ntiles,) i32), each tile entered at its
-    ``t_entry`` row (the head's decimated T)."""
-    return _composite_grid_plain(records, row_begin, row_end, t_entry, ntx,
-                                 nty, tile_w, decim)
+    ``t_entry`` row (the head's decimated T); rows as K2's."""
+    return _composite_grid_plain(records[idx], row_begin, row_end, t_entry,
+                                 ntx, nty, tile_w, decim)
 
 
-def _composite_tail_merged(records, row_begin, row_end, t_entry, ntx: int,
-                           nty: int, tile_w: int = TILE_W, decim: int = 2):
+def _composite_tail_merged(records, idx, row_begin, row_end, t_entry,
+                           ntx: int, nty: int, tile_w: int = TILE_W,
+                           decim: int = 2):
     """K3's kernel order in plain PyTorch, for tests and ``chip_smoke.py``
     (the wrapper's CPU path is ``_composite_tail_plain``): each chunk of a
     tile's tail composited from T = 1 into (C_loc, T_loc), then merged in
     order, C ← C + T·C_loc, T ← T·T_loc, with the tile-wide vote after
     each chunk. T and exec equal the plain version's; the colours differ
     by the reassociation only."""
-    return _composite_grid_plain(records, row_begin, row_end, t_entry, ntx,
-                                 nty, tile_w, decim, merge=True)
+    return _composite_grid_plain(records[idx], row_begin, row_end, t_entry,
+                                 ntx, nty, tile_w, decim, merge=True)
 
 
 def _cull_threshold(op):
@@ -1024,26 +1024,42 @@ def _composite_shape(kernel: int, tile_w: int, decim: int = 1):
     return c.value, t.value, r.value
 
 
-def _composite_args(name, records, row_begin, row_end, ntiles, tile_w, dev):
+def _composite_args(name, records, row_begin, row_end, ntiles, tile_w, dev,
+                    idx=None):
+    """Refuse what the composite kernels cannot take: a device other than
+    CUDA, a tile width other than 32/64/128, records that are not a
+    contiguous (rows, 12) f32 table at a 16-byte aligned address, row
+    ranges that are not (ntiles,) i32, and an ``idx`` (the layout's splat
+    ids, K2 and K3) that is not a contiguous 1-D i32 tensor."""
     if dev.type != "cuda":
         raise ValueError(f"{name}: unsupported device {dev}")
     if tile_w not in (32, 64, 128):
         raise ValueError(f"{name}: tile_w {tile_w} not in 32/64/128")
     _cuda.check_arg(records, "records", _F32, (records.shape[0], _ROWS), dev)
+    if records.data_ptr() % 16:
+        raise ValueError(f"{name}: records are not 16-byte aligned")
+    if idx is not None:
+        _cuda.check_arg(idx, "idx", _I32, (idx.shape[0],), dev)
     _cuda.check_arg(row_begin, "row_begin", _I32, (ntiles,), dev)
     _cuda.check_arg(row_end, "row_end", _I32, (ntiles,), dev)
 
 
-def _composite_fake(records, row_begin, row_end, ntx, nty, tile_w=TILE_W,
-                    decim=1):
+def _planes_fake(records, ntx, nty, tile_w, decim=1):
+    """A composite's (planes (4, ntiles, pixd), exec (ntiles,) i32) by
+    shape alone."""
     ntiles = ntx * nty
     pix = (TILE_H // decim) * (tile_w // decim)
     return (records.new_empty((4, ntiles, pix)),
             records.new_empty((ntiles,), dtype=_I32))
 
 
+def _composite_fake(records, idx, row_begin, row_end, ntx, nty,
+                    tile_w=TILE_W):
+    return _planes_fake(records, ntx, nty, tile_w)
+
+
 @_cuda.kernel_op("k2_composite", _composite_plain, _composite_fake)
-def _k2_op(records: torch.Tensor, row_begin: torch.Tensor,
+def _k2_op(records: torch.Tensor, idx: torch.Tensor, row_begin: torch.Tensor,
            row_end: torch.Tensor, ntx: int, nty: int,
            tile_w: int) -> tuple[torch.Tensor, torch.Tensor]:
     """K2's launch: (planes (4, ntiles, 32*tile_w) f32, exec (ntiles,)
@@ -1051,39 +1067,41 @@ def _k2_op(records: torch.Tensor, row_begin: torch.Tensor,
     dev = records.device          # _composite_args refuses non-CUDA
     ntiles = ntx * nty
     _composite_args("K2 composite", records, row_begin, row_end, ntiles,
-                    tile_w, dev)
+                    tile_w, dev, idx)
     planes = torch.empty((4, ntiles, TILE_H * tile_w), dtype=_F32,
                          device=dev)
     exec_ = torch.empty(ntiles, dtype=_I32, device=dev)
     with torch.cuda.device(dev):
         err = _cuda.lib().gs_composite(
-            records.data_ptr(), records.shape[0], row_begin.data_ptr(),
-            row_end.data_ptr(), planes.data_ptr(), exec_.data_ptr(), ntiles,
-            ntx, tile_w, torch.cuda.current_stream(dev).cuda_stream)
+            records.data_ptr(), idx.data_ptr(), idx.shape[0],
+            row_begin.data_ptr(), row_end.data_ptr(), planes.data_ptr(),
+            exec_.data_ptr(), ntiles, ntx, tile_w,
+            torch.cuda.current_stream(dev).cuda_stream)
     _cuda.check(err, "K2 composite")
     _cuda.launches["k2_composite"] += 1
     return planes, exec_
 
 
-def _composite_call(records, row_begin, row_end, ntx: int, nty: int,
+def _composite_call(records, idx, row_begin, row_end, ntx: int, nty: int,
                     tile_w: int = TILE_W):
     """K2 wrapper (the op ``rayeater::k2_composite``): (planes (4, ntiles,
-    32*tile_w) f32, exec (ntiles,) i32), initialised for every tile. CPU
+    32*tile_w) f32, exec (ntiles,) i32), initialised for every tile. Row r
+    of the layout is record ``idx[r]`` (i32, every id below N) of the (N,
+    12) ``records``; ``row_begin``/``row_end`` are rows of the layout. CPU
     tensors take the plain version; CUDA tensors launch the kernel (or
     raise)."""
     _cuda.op_device(records, "K2 composite")
-    return _k2_op(records, row_begin, row_end, ntx, nty, tile_w)
+    return _k2_op(records, idx, row_begin, row_end, ntx, nty, tile_w)
 
 
-def _composite_tail_fake(records, row_begin, row_end, t_entry, ntx, nty,
-                         tile_w, decim):
-    return _composite_fake(records, row_begin, row_end, ntx, nty, tile_w,
-                           decim)
+def _composite_tail_fake(records, idx, row_begin, row_end, t_entry, ntx,
+                         nty, tile_w, decim):
+    return _planes_fake(records, ntx, nty, tile_w, decim)
 
 
 @_cuda.kernel_op("k3_composite_tail", _composite_tail_plain,
                  _composite_tail_fake)
-def _k3_op(records: torch.Tensor, row_begin: torch.Tensor,
+def _k3_op(records: torch.Tensor, idx: torch.Tensor, row_begin: torch.Tensor,
            row_end: torch.Tensor, t_entry: torch.Tensor, ntx: int, nty: int,
            tile_w: int, decim: int) -> tuple[torch.Tensor, torch.Tensor]:
     """K3's launch (two passes): (planes (4, ntiles, pixd) f32, exec
@@ -1091,7 +1109,7 @@ def _k3_op(records: torch.Tensor, row_begin: torch.Tensor,
     dev = records.device
     ntiles = ntx * nty
     _composite_args("K3 tail composite", records, row_begin, row_end,
-                    ntiles, tile_w, dev)
+                    ntiles, tile_w, dev, idx)
     if decim not in (1, 2, 4):
         raise ValueError(f"K3 tail composite: decim {decim} not in 1/2/4")
     pixd = (TILE_H // decim) * (tile_w // decim)
@@ -1099,12 +1117,13 @@ def _k3_op(records: torch.Tensor, row_begin: torch.Tensor,
     planes = torch.empty((4, ntiles, pixd), dtype=_F32, device=dev)
     exec_ = torch.empty(ntiles, dtype=_I32, device=dev)
     # each chunk's partials between the kernel's two passes, one slot per
-    # (tile, chunk): at most ceil(nrows/128) + ntiles
-    scratch = torch.empty((-(-records.shape[0] // CHUNK) + ntiles, 4, pixd),
+    # (tile, chunk): at most ceil(nrows/128) + ntiles, nrows the layout's
+    nrows = idx.shape[0]
+    scratch = torch.empty((-(-nrows // CHUNK) + ntiles, 4, pixd),
                           dtype=_F32, device=dev)
     with torch.cuda.device(dev):
         err = _cuda.lib().gs_composite_tail(
-            records.data_ptr(), records.shape[0], row_begin.data_ptr(),
+            records.data_ptr(), idx.data_ptr(), nrows, row_begin.data_ptr(),
             row_end.data_ptr(), t_entry.data_ptr(), planes.data_ptr(),
             exec_.data_ptr(), ntiles, ntx, tile_w, decim,
             torch.cuda.current_stream(dev).cuda_stream, scratch.data_ptr())
@@ -1113,18 +1132,19 @@ def _k3_op(records: torch.Tensor, row_begin: torch.Tensor,
     return planes, exec_
 
 
-def _composite_tail_call(records, row_begin, row_end, t_entry, ntx: int,
-                         nty: int, tile_w: int = TILE_W, decim: int = 2):
+def _composite_tail_call(records, idx, row_begin, row_end, t_entry,
+                         ntx: int, nty: int, tile_w: int = TILE_W,
+                         decim: int = 2):
     """K3 wrapper (the op ``rayeater::k3_composite_tail``): (planes (4,
     ntiles, pixd) f32 = r, g, b, absolute T; exec (ntiles,) i32),
     initialised for every tile (a tile with no rows, or skipped at entry,
-    keeps rgb 0 and its entry T). CPU tensors take the plain version; CUDA
-    tensors launch the kernel's two passes (or raise), which need row
-    ranges that ascend with the tile index and do not overlap, as every
-    packed layout here does."""
+    keeps rgb 0 and its entry T). Rows as K2's. CPU tensors take the plain
+    version; CUDA tensors launch the kernel's two passes (or raise), which
+    need row ranges that ascend with the tile index and do not overlap, as
+    every layout here does."""
     _cuda.op_device(records, "K3 tail composite")
-    return _k3_op(records, row_begin, row_end, t_entry, ntx, nty, tile_w,
-                  decim)
+    return _k3_op(records, idx, row_begin, row_end, t_entry, ntx, nty,
+                  tile_w, decim)
 
 
 # ---------------------------------------------------------------------------
@@ -1161,8 +1181,7 @@ def _composite_ckpt_fake(records, row_begin, row_end, ntx, nty,
                          tile_w=TILE_W):
     ntiles = ntx * nty
     nslots = -(-records.shape[0] // CHUNK) + ntiles
-    planes, exec_ = _composite_fake(records, row_begin, row_end, ntx, nty,
-                                    tile_w)
+    planes, exec_ = _planes_fake(records, ntx, nty, tile_w)
     return (planes, exec_, records.new_empty((nslots, TILE_H * tile_w)),
             records.new_empty((ntiles,), dtype=_I32))
 
@@ -1365,11 +1384,14 @@ def composite_diff(packed, row_begin, row_end, ntx: int, nty: int,
     """Differentiable composite → planes (4, ntiles, 32*tile_w) = r, g, b,
     T (the JAX ``composite_diff``). When autograd records the call, the
     forward is K4 (saving its entry-T checkpoints) and the backward K5;
-    otherwise it is K2 alone, as the JAX primal is."""
+    otherwise it is K2 alone, as the JAX primal is, on the packed rows
+    (an identity layout)."""
     if torch.is_grad_enabled() and packed.requires_grad:
         return _CompositeDiff.apply(packed, row_begin, row_end, ntx, nty,
                                     tile_w)
-    return _composite_call(packed, row_begin, row_end, ntx, nty, tile_w)[0]
+    rows = torch.arange(packed.shape[0], dtype=_I32, device=packed.device)
+    return _composite_call(packed, rows, row_begin, row_end, ntx, nty,
+                           tile_w)[0]
 
 
 def _decimate_t(t_plane, tile_w: int, decim: int):
@@ -1456,13 +1478,17 @@ def finalize_planes(planes, visited, nty: int, ntx: int, background,
 
 
 class FrameLayout(NamedTuple):
-    """A frame's composite input: packed records and per-tile row ranges."""
-    records: torch.Tensor     # (R, 12) f32 packed records
+    """A frame's composite input: the records, the binning (each layout's
+    splat ids, ``binned.pack_idx`` and the tail's ``binned.pack_idx_tl``,
+    and per-tile row ranges) and the tile grid. A rendered frame's
+    ``records`` are the (N, 12) record table, which K2 and K3 read through
+    the ids; the training frame's (``_diff_layout``) are already packed,
+    (R, 12) rows gathered by ``binned.pack_idx``, as K4 reads them."""
+    records: torch.Tensor     # (N, 12) f32 table, or (R, 12) packed rows
     binned: Binned
     ntx: int
     nty: int
     tile_w: int
-    records_tl: torch.Tensor | None = None    # packed tail records
     n_valid: torch.Tensor | None = None   # () i32 splats K1 kept (LOD)
 
 
@@ -1549,8 +1575,9 @@ def _bin_pack(kn: _Knobs, records, mx, my, rad, valid, depth, ext,
               ntx: int, nty: int, budget=None,
               depth_range=None) -> FrameLayout:
     """Bin splat rows under ``kn`` (:func:`_bin_splats`; ``mx``, ``my`` as
-    the caller holds them: K1's contiguous means in a frame) and gather
-    ``records`` into the tail's and the head's packed order."""
+    the caller holds them: K1's contiguous means in a frame) into the
+    layouts over ``records``, the contiguous (N, 12) table that K2 and K3
+    read through the layouts' splat ids."""
     tail = None
     if kn.slab:
         # the slab's input: each splat's alpha integral op·2π/sqrt(det
@@ -1562,11 +1589,8 @@ def _bin_pack(kn: _Knobs, records, mx, my, rad, valid, depth, ext,
                 records[:, _CR:_CB2 + 1])
     b = _bin_splats(mx, my, rad, valid, depth, ntx, nty, budget=budget,
                     ext=ext, tail=tail, depth_range=depth_range, **kn.bins)
-    records_tl = (None if b.pack_idx_tl is None
-                  else _pack_records(records, b.pack_idx_tl))
-    return FrameLayout(records=_pack_records(records, b.pack_idx),
-                       binned=b, ntx=ntx, nty=nty,
-                       tile_w=kn.bins["tile_w"], records_tl=records_tl)
+    return FrameLayout(records=records, binned=b, ntx=ntx, nty=nty,
+                       tile_w=kn.bins["tile_w"])
 
 
 def _frame_layout(cloud, view, proj, width: int, height: int, *,
@@ -1579,7 +1603,7 @@ def _frame_layout(cloud, view, proj, width: int, height: int, *,
                   corner_cap: int | None = None,
                   lod_tail_decim: int | None = None,
                   lod_tail: bool = False) -> FrameLayout:
-    """Project (K1), bin and pack one frame: everything before K2. With
+    """Project (K1) and bin one frame: everything before K2. With
     ``lod_tail`` (LOD mode) the binning also sums the slab proxy
     (``binned.tail_slab``)."""
     ntx, nty = num_tiles(width, height, tile_w)
@@ -1615,19 +1639,19 @@ def _composite_frame(lay: FrameLayout, background,
     ``background=None`` (a sort-last slice): K2 alone, and the image is
     :func:`_untile_visited`'s background-free colour and T (Hp, Wp, 4)."""
     b = lay.binned
-    planes, texec = _composite_call(lay.records, b.row_begin, b.row_end,
-                                    lay.ntx, lay.nty, lay.tile_w)
+    planes, texec = _composite_call(lay.records, b.pack_idx, b.row_begin,
+                                    b.row_end, lay.ntx, lay.nty, lay.tile_w)
     if background is None:
         rgb, t, _ = _untile_visited(planes, b.visited, lay.nty, lay.ntx,
                                     lay.tile_w)
         return torch.cat([rgb, t[..., None]], -1), texec
     tail_d = _TAIL_D if lod_tail_d is None else lod_tail_d
     tail_planes = None
-    if lay.records_tl is not None:
+    if b.pack_idx_tl is not None:
         td = _tail_entry(planes[3], b.visited, lay.tile_w, tail_d)
         planes_tl, _ = _composite_tail_call(
-            lay.records_tl, b.row_begin_tl, b.row_end_tl, td, lay.ntx,
-            lay.nty, lay.tile_w, tail_d)
+            lay.records, b.pack_idx_tl, b.row_begin_tl, b.row_end_tl, td,
+            lay.ntx, lay.nty, lay.tile_w, tail_d)
         tail_planes = (planes_tl, td, b.kept_tl > 0)
     return finalize_planes(planes, b.visited, lay.nty, lay.ntx, background,
                            lay.tile_w, tail_planes, tail_d,

@@ -324,7 +324,8 @@ def render_gaussians_sharded(cloud, view, proj, width: int, height: int,
         nl = nty_local * ntx
         budget_local = budget[r * nl:(r + 1) * nl]
 
-    records = packet[:, :gs_ops._ROWS]
+    # the record table K2 reads through the layout's ids: contiguous
+    records = packet[:, :gs_ops._ROWS].contiguous()
     lay = gs_ops._bin_pack(kn, records, records[:, gs_ops._MX],
                            records[:, gs_ops._MY], packet[:, _RAD], in_band,
                            packet[:, _DEPTH], packet[:, _EXT:_EXT + 2], ntx,
@@ -421,7 +422,7 @@ def render_gaussians_depth_sliced(cloud, view, proj, width: int,
     # this slice's full-frame exact composite, background-free planes;
     # the depth keys over the frame's range, not the slice's: every pair
     # gets the single-device frame's key, so tied keys keep its order
-    records = sl[:, :gs_ops._ROWS]
+    records = sl[:, :gs_ops._ROWS].contiguous()
     lay = gs_ops._bin_pack(kn, records, records[:, gs_ops._MX],
                            records[:, gs_ops._MY], sl[:, _RAD],
                            sl[:, _VALID] > 0.5, sl[:, _DEPTH],

@@ -152,22 +152,25 @@ def main(argv=None) -> int:
             lay = gs._frame_layout(cloud, view, proj, W, H, **layout_kwargs(
                 knobs, exact, W, H, dev))
             b = lay.binned
-            head = (lay.records, b.row_begin, b.row_end, lay.ntx, lay.nty,
-                    lay.tile_w)
+            head = (lay.records, b.pack_idx, b.row_begin, b.row_end,
+                    lay.ntx, lay.nty, lay.tile_w)
             calls[f"K2 {scene} {label}"] = (gs._composite_call, head)
             if scene == "inria":      # chip_smoke.py's check_k3
                 decim = knobs["lod_tail_d"]
                 td = gs._tail_entry(gs._composite_call(*head)[0][3],
                                     b.visited, lay.tile_w, decim)
                 calls[f"K3 {scene} tail"] = (gs._composite_tail_call, (
-                    lay.records_tl, b.row_begin_tl, b.row_end_tl, td,
-                    lay.ntx, lay.nty, lay.tile_w, decim))
+                    lay.records, b.pack_idx_tl, b.row_begin_tl,
+                    b.row_end_tl, td, lay.ntx, lay.nty, lay.tile_w, decim))
         del cloud, lay, b, head
     torch.cuda.empty_cache()
 
     _, targs, (planes, ex, ck, off), dplanes, _ = gs_trainer.first_frame(
         n, W, H, dev)
-    calls["K2 training frame"] = (gs._composite_call, targs)
+    # K2 on the training frame's packed rows: an identity layout
+    rows = torch.arange(targs[0].shape[0], dtype=torch.int32, device=dev)
+    calls["K2 training frame"] = (gs._composite_call, (targs[0], rows,
+                                                       *targs[1:]))
     calls["K4 training frame"] = (gs._composite_call_ckpt, targs)
     calls["K5 training frame"] = (gs._composite_bwd_call, (
         *targs[:3], ex, off, ck, planes, dplanes, *targs[3:]))

@@ -74,7 +74,8 @@ def main(argv=None) -> int:
     lay = gs._frame_layout(cloud, view, proj, w, h, **layout_kwargs(
         knobs, False, w, h, dev))
     b = lay.binned
-    k2 = (lay.records, b.row_begin, b.row_end, lay.ntx, lay.nty, lay.tile_w)
+    k2 = (lay.records, b.pack_idx, b.row_begin, b.row_end, lay.ntx, lay.nty,
+          lay.tile_w)
     sc = rs.scene("multipass", dev)
     fb, ds = rs.draw_setup(sc, 0.5)
     k6 = (ds.setup, raster._pad_rows(fb.depth),

@@ -1,14 +1,16 @@
 """Port vs JAX: K2's plain version (``_composite_plain``) against the Pallas
 ``_composite_call`` in interpret mode, on packed records that the JAX
-package built — the exact (direct) layout with 8 chunks per grid step and
-the aligned LOD layout.
+package built (under an identity layout) — the exact (direct) layout with
+8 chunks per grid step and the aligned LOD layout.
 
 Tolerances: planes of visited tiles within 2e-3 max abs (a running
 ``cumprod`` against the TPU's doubling scan: reassociation only, so the
 measured error is ~1e-6); ``exec`` equal on every tile. The scene puts an
 opaque blanket in front of a fog so that some tiles saturate inside their
 lists (exec < kept). Also: K2's warp row cull bound (its plain twin)
-never skips a sample that reaches alpha 1/255.
+never skips a sample that reaches alpha 1/255; and K2's and K3's plain
+versions on the record table and a port layout's splat ids equal, bit for
+bit, their call on the rows gathered into packed order.
 """
 
 import numpy as np
@@ -18,6 +20,8 @@ import torch
 from ray_eater_tpu import rmath as jrmath
 from ray_eater_tpu.models import gaussians as jgauss
 from ray_eater_tpu.ops import gs as jgs
+from ray_eater_tpu_torch.bench_knobs import (bench_cloud, flythrough_camera,
+                                             layout_kwargs, resolve_knobs)
 from ray_eater_tpu_torch.ops import gs
 
 torch.set_num_threads(1)
@@ -94,10 +98,16 @@ def layout(request):
     return _jax_layout(None if request.param == "exact" else 256)
 
 
+def _identity(rows):
+    """The layout of packed rows: row r is record r."""
+    return torch.arange(rows.shape[0], dtype=torch.int32)
+
+
 def test_composite_plain_matches_jax(layout):
     L = layout
+    packed = torch.from_numpy(L["packed"])
     planes, ex = gs._composite_call(
-        torch.from_numpy(L["packed"]), torch.from_numpy(L["begin"]),
+        packed, _identity(packed), torch.from_numpy(L["begin"]),
         torch.from_numpy(L["end"]), L["ntx"], L["nty"], TW)
     assert planes.shape == (4, L["ntx"] * L["nty"], 32 * TW)
     vis = L["visited"]
@@ -122,9 +132,70 @@ def test_scene_saturates_mid_list(layout):
 def test_k2_wrapper_refuses_other_devices():
     with pytest.raises(ValueError):
         gs._composite_call(torch.empty((128, 12), device="meta"),
+                           torch.empty(128, dtype=torch.int32, device="meta"),
                            torch.empty(6, dtype=torch.int32, device="meta"),
                            torch.empty(6, dtype=torch.int32, device="meta"),
                            2, 3, 32)
+
+
+# the port's three kinds of layout: (scene, exact)
+PORT_LAYOUTS = {"fog exact": ("fog", True), "fog LOD": ("fog", False),
+                "inria head+tail": ("inria", False)}
+
+
+def _live_rows(row_begin, row_end, nrows):
+    """(nrows,) bool: the rows some tile's range holds."""
+    d = torch.zeros(nrows + 1, dtype=torch.int32)
+    d.index_add_(0, row_begin.long(), torch.ones_like(row_begin))
+    d.index_add_(0, row_end.long(), -torch.ones_like(row_end))
+    return torch.cumsum(d, 0)[:nrows] > 0
+
+
+@pytest.mark.parametrize("case", list(PORT_LAYOUTS))
+def test_indexed_composite_matches_packed(case):
+    """K2's plain version (and, with the decimated tail, K3's and its
+    merged twin) called with the (N, 12) record table and a port layout's
+    splat ids gives the planes and exec of the call on the rows gathered
+    into packed order (``records[idx]``, an identity layout), bit for
+    bit, at the bench knobs of the exact frame (rows past the last tile's
+    range hold the sentinel keys' splats), the fog LOD frame (aligned
+    blocks padded with one splat's id) and the inria head + tail."""
+    scene, exact = PORT_LAYOUTS[case]
+    n, w, h = 2000, 256, 128
+    knobs = resolve_knobs(scene, n, env={})
+    view, proj = flythrough_camera(0.25, w, h, device="cpu")
+    lay = gs._frame_layout(bench_cloud(scene, n, "cpu"), view, proj, w, h,
+                           **layout_kwargs(knobs, exact, w, h, "cpu"))
+    b, rec = lay.binned, lay.records
+    assert rec.shape == (n, 12) and b.pack_idx.dtype == torch.int32
+    live = _live_rows(b.row_begin, b.row_end, len(b.pack_idx))
+    assert bool(live.any()) and not bool(live.all())
+    if exact:       # the sorted slots past the emitted pairs
+        assert len(b.pack_idx) > int(b.emitted) >= int(b.row_end.max())
+    else:           # padding rows of the aligned blocks: one splat
+        pad = b.pack_idx[~live]
+        assert bool((pad == pad[0]).all())
+    grid = (lay.ntx, lay.nty, lay.tile_w)
+    planes, ex = gs._composite_call(rec, b.pack_idx, b.row_begin, b.row_end,
+                                    *grid)
+    packed = rec[b.pack_idx]
+    want = gs._composite_call(packed, _identity(packed), b.row_begin,
+                              b.row_end, *grid)
+    assert torch.equal(planes, want[0]) and torch.equal(ex, want[1])
+    assert int(ex.sum()) > 0
+    if b.pack_idx_tl is None:
+        assert scene == "fog"
+        return
+    decim = knobs["lod_tail_d"]
+    td = gs._tail_entry(planes[3], b.visited, lay.tile_w, decim)
+    packed = rec[b.pack_idx_tl]
+    for fn in (gs._composite_tail_call, gs._composite_tail_merged):
+        got = fn(rec, b.pack_idx_tl, b.row_begin_tl, b.row_end_tl, td,
+                 *grid, decim)
+        want = fn(packed, _identity(packed), b.row_begin_tl, b.row_end_tl,
+                  td, *grid, decim)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        assert int(got[1].sum()) > 0
 
 
 def test_warp_row_cull_is_exact():

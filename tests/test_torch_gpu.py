@@ -45,7 +45,8 @@ import pytest
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
-from ray_eater_tpu_torch.bench_knobs import (flythrough_camera, layout_kwargs,
+from ray_eater_tpu_torch.bench_knobs import (bench_cloud, flythrough_camera,
+                                             layout_kwargs,
                                              render_kwargs, resolve_knobs)
 from ray_eater_tpu_torch.models.gaussians import inria_cloud, random_cloud
 from ray_eater_tpu_torch.ops import gs
@@ -102,7 +103,8 @@ CRAFTED_CHUNKS = [3, 2, 0, 1, 0, 0]
 
 
 def _crafted_layout(dev, tile_w, halves=False):
-    """K2's arguments on a frame of 3x2 tiles built by hand from a seed:
+    """K4's arguments (packed rows) on a frame of 3x2 tiles built by hand
+    from a seed:
     random small Gaussians (sigma 0.5-4 px, opacity 0.05-0.6) over each
     tile with rows, and in tile 1 eight rows of a wide blanket at opacity
     0.995 (alpha clamped at 0.99) that take every sample below T = 1e-4.
@@ -144,15 +146,31 @@ def _crafted_layout(dev, tile_w, halves=False):
             span[:, 1].contiguous(), ntx, nty, tile_w)
 
 
+def _identity(rows):
+    """The layout of packed rows: row r is record r."""
+    return torch.arange(rows.shape[0], dtype=torch.int32, device=rows.device)
+
+
 def _k2_args(scene, layout, tile_w):
+    """K2's arguments (records, idx, row_begin, row_end, ntx, nty, tile_w):
+    a frame's record table and its layout's splat ids, or the crafted
+    layout's packed rows under an identity layout."""
     if layout == "crafted":
-        return _crafted_layout(scene[0].means.device, tile_w)
+        rec, *rest = _crafted_layout(scene[0].means.device, tile_w)
+        return (rec, _identity(rec), *rest)
     cloud, view, proj = scene
     mpt = {"exact": None, "lod176": 176, "lod256": 256}[layout]
     lay = gs._frame_layout(cloud, view, proj, W, H, tile_w=tile_w,
                            max_splats_per_tile=mpt)
     b = lay.binned
-    return lay.records, b.row_begin, b.row_end, lay.ntx, lay.nty, tile_w
+    return (lay.records, b.pack_idx, b.row_begin, b.row_end, lay.ntx,
+            lay.nty, tile_w)
+
+
+def _packed(args):
+    """K4's and K5's arguments from K2's: the layout's rows gathered into
+    packed order, as the training frame holds them."""
+    return (args[0][args[1]], *args[2:])
 
 
 @pytest.mark.parametrize("layout", ["exact", "lod176", "crafted"])
@@ -199,11 +217,11 @@ def test_k3_matches_plain(inria, tile_w, decim):
     lay = gs._frame_layout(cloud, view, proj, W, H, **dict(layout_kwargs(
         knobs, False, W, H, cloud.means.device), tile_w=tile_w))
     b, tw = lay.binned, lay.tile_w
-    head, _ = gs._composite_call(lay.records, b.row_begin, b.row_end,
-                                 lay.ntx, lay.nty, tw)
+    head, _ = gs._composite_call(lay.records, b.pack_idx, b.row_begin,
+                                 b.row_end, lay.ntx, lay.nty, tw)
     td = gs._tail_entry(head[3], b.visited, tw, decim)
-    args = (lay.records_tl, b.row_begin_tl, b.row_end_tl, td, lay.ntx,
-            lay.nty, tw, decim)
+    args = (lay.records, b.pack_idx_tl, b.row_begin_tl, b.row_end_tl, td,
+            lay.ntx, lay.nty, tw, decim)
     assert int(b.kept_tl.sum()) > 0
     (pk, ek) = gs._composite_tail_call(*args)
     (pp, ep) = gs._composite_tail_plain(*args)
@@ -212,6 +230,69 @@ def test_k3_matches_plain(inria, tile_w, decim):
     assert float((ek == ep).float().mean()) >= 0.999
     ctas, threads, resident = gs._composite_shape(3, tw, decim)
     assert ctas >= 2 and 32 <= threads <= 1024 and resident >= ctas
+
+
+# the port's three kinds of layout: (scene, exact)
+PORT_LAYOUTS = {"fog exact": ("fog", True), "fog LOD": ("fog", False),
+                "inria head+tail": ("inria", False)}
+
+
+def _live_rows(row_begin, row_end, nrows):
+    """(nrows,) bool: the rows of a layout that some tile's range holds."""
+    d = torch.zeros(nrows + 1, dtype=torch.int32, device=row_begin.device)
+    d.index_add_(0, row_begin.long(), torch.ones_like(row_begin))
+    d.index_add_(0, row_end.long(), -torch.ones_like(row_end))
+    return torch.cumsum(d, 0)[:nrows] > 0
+
+
+@pytest.mark.parametrize("case", list(PORT_LAYOUTS))
+def test_indexed_k2_k3_match_packed_and_plain(case):
+    """K2 and K3 fetch each row of the (N, 12) record table through the
+    layout's splat id. On the bench knobs' fog exact frame (rows past the
+    last tile's range), fog LOD frame (aligned blocks padded with one
+    splat) and inria head + tail at 100k splats, their planes and exec are
+    bit-equal to a launch on the rows gathered into packed order under an
+    identity layout, and to a launch on a table whose rows that no tile's
+    range names are NaN (the kernels read no other row); against the
+    plain versions, the tolerances above."""
+    dev = _cuda()
+    scene, exact = PORT_LAYOUTS[case]
+    n = 100_000
+    knobs = resolve_knobs(scene, n, env={})
+    view, proj = flythrough_camera(0.25, W, H, device=dev)
+    lay = gs._frame_layout(bench_cloud(scene, n, dev), view, proj, W, H,
+                           **layout_kwargs(knobs, exact, W, H, dev))
+    b, rec = lay.binned, lay.records
+    grid = (lay.ntx, lay.nty, lay.tile_w)
+
+    def check(call, plain, idx, begin, end, *rest):
+        live = _live_rows(begin, end, idx.shape[0])
+        assert bool(live.any()) and not bool(live.all())
+        named = torch.zeros(rec.shape[0], dtype=torch.bool, device=dev)
+        named[idx[live].long()] = True
+        nan = torch.where(named[:, None], rec, float("nan"))
+        packed = rec[idx]
+        got = call(rec, idx, begin, end, *rest)
+        for want in (call(packed, _identity(packed), begin, end, *rest),
+                     call(nan, idx, begin, end, *rest)):
+            assert torch.equal(got[0], want[0])
+            assert torch.equal(got[1], want[1])
+        pp, ep = plain(rec, idx, begin, end, *rest)
+        err = (got[0] - pp).abs()
+        assert float(err.max()) <= 2e-3 and float(err.mean()) <= 1e-5
+        assert float((got[1] == ep).float().mean()) >= 0.999
+        assert int(got[1].sum()) > 0
+        return got[0]
+
+    head = check(gs._composite_call, gs._composite_plain, b.pack_idx,
+                 b.row_begin, b.row_end, *grid)
+    if scene == "fog":
+        assert b.pack_idx_tl is None
+        return
+    decim = knobs["lod_tail_d"]
+    td = gs._tail_entry(head[3], b.visited, lay.tile_w, decim)
+    check(gs._composite_tail_call, gs._composite_tail_plain, b.pack_idx_tl,
+          b.row_begin_tl, b.row_end_tl, td, *grid, decim)
 
 
 def test_k1_at_the_coarse_radius_ceiling(inria):
@@ -269,7 +350,7 @@ def _assert_k4_matches_plain(args):
 
 @pytest.mark.parametrize("tile_w", [32, 64, 128])
 def test_k4_matches_plain(scene, tile_w):
-    _assert_k4_matches_plain(_k2_args(scene, "lod256", tile_w))
+    _assert_k4_matches_plain(_packed(_k2_args(scene, "lod256", tile_w)))
 
 
 @pytest.mark.parametrize("tile_w", [32, 64, 128])
@@ -294,7 +375,7 @@ def test_k4_cluster_vote_stops_mid_list(tile_w):
 @pytest.mark.parametrize("layout", ["lod256", "crafted"])
 @pytest.mark.parametrize("tile_w", [32, 64, 128])
 def test_k5_matches_plain(scene, layout, tile_w):
-    args = _k2_args(scene, layout, tile_w)
+    args = _packed(_k2_args(scene, layout, tile_w))
     planes, ex, ck, off = gs._composite_call_ckpt(*args)
     gen = torch.Generator(device=planes.device).manual_seed(0)
     d = torch.randn(planes.shape, generator=gen, device=planes.device)
@@ -867,6 +948,83 @@ def test_replay_equals_eager_on_compute_drawing():
     _cuda()
     d = compute_drawing.setup("cuda", 0, 300, 200, 32)
     _replay_equals_eager(d.frame, 3, srgb=False, keep="last")
+
+
+def _device_kernels(fn, calls: int = 1) -> float:
+    """Device kernels (copies and fills left out) a call of ``fn`` under
+    ``torch.profiler``, over ``calls`` calls."""
+    import re
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return sum(1 for e in prof.events()
+               if e.device_type == DeviceType.CUDA
+               and not e.is_user_annotation
+               and not re.search(r"[Mm]em(cpy|set)", e.name)) / calls
+
+
+@pytest.mark.parametrize("scene", ["fog", "inria"])
+def test_replayed_frame_drops_the_record_packs(scene):
+    """A captured frame of the spine (``_frame_layout``, then
+    ``_composite_frame``) replays the kernels of the same frame built as
+    before K2 and K3 fetched rows by splat id (the rows gathered into
+    packed order, ``records[idx]``, and the kernels run on them under an
+    identity layout made before capture) less the packs: one row gather
+    fewer a fog LOD frame, two (head and tail) an inria frame. The u8
+    frames are equal."""
+    from ray_eater_tpu_torch.core import animation
+    dev = _cuda()
+    n, bg = 100_000, (0.1, 0.2, 0.3)
+    knobs = resolve_knobs(scene, n, env={})
+    cloud = bench_cloud(scene, n, dev)
+    kw = layout_kwargs(knobs, False, W, H, dev)
+    d = knobs["lod_tail_d"]
+
+    def layout(t):
+        view, proj = flythrough_camera(t, W, H, device=dev)
+        return gs._frame_layout(cloud, view, proj, W, H, **kw)
+
+    def frame(t):
+        return gs._composite_frame(layout(t), bg, d)[0][:H, :W]
+
+    b0 = layout(torch.zeros((), device=dev)).binned
+    ident = [_identity(i) for i in (b0.pack_idx, b0.pack_idx_tl)
+             if i is not None]
+
+    def packed_frame(t):
+        lay = layout(t)
+        b, rec, grid = lay.binned, lay.records, (lay.ntx, lay.nty, lay.tile_w)
+        planes, _ = gs._composite_call(rec[b.pack_idx], ident[0], b.row_begin,
+                                       b.row_end, *grid)
+        tail = None
+        if b.pack_idx_tl is not None:
+            td = gs._tail_entry(planes[3], b.visited, lay.tile_w, d)
+            pt, _ = gs._composite_tail_call(rec[b.pack_idx_tl], ident[1],
+                                            b.row_begin_tl, b.row_end_tl, td,
+                                            *grid, d)
+            tail = (pt, td, b.kept_tl > 0)
+        return gs.finalize_planes(planes, b.visited, lay.nty, lay.ntx, bg,
+                                  lay.tile_w, tail, d,
+                                  b.tail_slab)[:H, :W]
+
+    packs = len(ident)
+    assert packs == (1 if scene == "fog" else 2)
+    rec = cloud.means.new_zeros((n, 12))
+    per_pack = _device_kernels(lambda: rec[b0.pack_idx])
+    assert per_pack >= 1
+    counts, frames = [], []
+    for fn in (frame, packed_frame):
+        # the first call captures; the profiled ones replay that graph
+        frames.append(animation.render_animation(fn, 1, keep="last"))
+        counts.append(_device_kernels(
+            lambda: animation.render_animation(fn, 1, keep="last"), 3))
+        animation.release(fn)
+    assert torch.equal(frames[0], frames[1])
+    assert counts[1] - counts[0] == packs * per_pack, counts
 
 
 def test_capture_of_a_host_copy_raises():

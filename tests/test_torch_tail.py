@@ -106,12 +106,15 @@ def test_inria_slice_exercises_channels_and_tail(rendered):
                                 **dict(kw_one, **{drop: 1}))
         assert int(lay1.binned.overflow_big) > 0, drop
     if kw.get("max_splats_per_tile") is None:
-        assert b.kept_tl is None and lay.records_tl is None
+        assert b.kept_tl is None and b.pack_idx_tl is None
         assert int(b.overflow) == 0
     else:
         assert bool((b.kept < b.count).any())
         assert int(b.kept_tl.sum()) > 0
-        assert lay.records_tl.shape == (len(b.pack_idx_tl), 12)
+        # K3 reads the record table through the tail layout's splat ids
+        assert lay.records.shape == (N, 12)
+        assert b.pack_idx_tl.dtype == torch.int32
+        assert 0 <= int(b.pack_idx_tl.min()) <= int(b.pack_idx_tl.max()) < N
 
 
 def test_tail_d1_reproduces_exact():
@@ -150,8 +153,9 @@ def test_tail_d1_reproduces_exact():
 
 @pytest.fixture(scope="module")
 def tail_layout():
-    """A JAX-built tail layout of the inria frame: packed tail records,
-    step tuple, per-tile tail grants, row ranges."""
+    """A JAX-built tail layout of the inria frame: the record table and
+    the tail layout's splat ids, the packed tail records (for the JAX
+    composite), step tuple, per-tile tail grants, row ranges."""
     view, proj = flythrough_camera(T, W, H, device="cpu")
     ps = gs.project_gaussians(CLOUD.means, CLOUD.scales, CLOUD.quats,
                               CLOUD.opacities, CLOUD.colors, view, proj, W, H,
@@ -173,7 +177,9 @@ def tail_layout():
     blocks = (kept_tl + gs.CHUNK - 1) // gs.CHUNK
     begin = (np.concatenate([[0], np.cumsum(blocks)[:-1]])
              * gs.CHUNK).astype(np.int32)
-    return dict(packed=records[np.asarray(pack_tl)], steps=steps_tl,
+    ids = np.asarray(pack_tl).astype(np.int32)
+    return dict(records=records, ids=ids, packed=records[ids],
+                steps=steps_tl,
                 kept_tl=kept_tl, begin=begin,
                 end=(begin + kept_tl).astype(np.int32), ntx=ntx, nty=nty)
 
@@ -188,15 +194,16 @@ def test_composite_tail_plain_matches_jax(tail_layout, decim):
     assert vis_t.sum() >= 3
     rng = np.random.RandomState(decim)
     td = (0.2 + 0.8 * rng.rand(nt, pixd)).astype(np.float32)
-    args = [torch.from_numpy(L[k]) for k in ("packed", "begin", "end")]
+    args = [torch.from_numpy(L[k]) for k in ("records", "ids", "begin",
+                                              "end")]
     skip = np.flatnonzero(vis_t)[0]
     td[skip] = 5e-5            # entered saturated: the tile runs nothing
     # a tile entered just above saturation at one sample that its first
     # chunk covers (and below it elsewhere) saturates after that chunk
     sat = np.flatnonzero(L["kept_tl"] > gs.CHUNK)[0]
-    end1 = args[2].clone()
-    end1[sat] = args[1][sat] + gs.CHUNK
-    probe, _ = gs._composite_tail_plain(args[0], args[1], end1,
+    end1 = args[3].clone()
+    end1[sat] = args[2][sat] + gs.CHUNK
+    probe, _ = gs._composite_tail_plain(args[0], args[1], args[2], end1,
                                         torch.ones(nt, pixd), ntx, nty, TW,
                                         decim)
     k = int(probe[3, sat].argmin())
@@ -237,7 +244,8 @@ def test_composite_tail_merged_matches_plain(tail_layout, decim):
     ntx, nty = L["ntx"], L["nty"]
     nt = ntx * nty
     pixd = (gs.TILE_H // decim) * (TW // decim)
-    args = [torch.from_numpy(L[k]) for k in ("packed", "begin", "end")]
+    args = [torch.from_numpy(L[k]) for k in ("records", "ids", "begin",
+                                              "end")]
     rng = np.random.RandomState(20 + decim)
     td = (0.2 + 0.8 * rng.rand(nt, pixd)).astype(np.float32)
     td[np.flatnonzero(L["kept_tl"] > 0)[0]] = 5e-5
@@ -269,6 +277,7 @@ def test_k3_wrapper_refuses_other_devices():
     with pytest.raises(ValueError):
         gs._composite_tail_call(
             torch.empty((128, 12), **meta),
+            torch.empty(128, dtype=torch.int32, **meta),
             torch.empty(6, dtype=torch.int32, **meta),
             torch.empty(6, dtype=torch.int32, **meta),
             torch.empty((6, 128), **meta), 2, 3, 64, 4)
